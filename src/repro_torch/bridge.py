@@ -1,0 +1,70 @@
+"""Carry a fitted reference ``HybridTree`` across into the port.
+
+``hybrid_from_reference(h, device)`` reads the reference object's arrays
+by attribute and converts each with ``np.asarray`` — so it accepts the
+JAX package's arrays without importing JAX — then builds the port's
+``HybridTree`` on ``device``: tree levels, leaf entries and ids, the grid,
+``cell_ok``, the MLP bank and the router. The tests use it to run both
+packages on the same fitted index.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.aitree import make_aitree
+from repro_torch.core.classifiers.mlp import MLPBank
+from repro_torch.core.classifiers.router import Router
+from repro_torch.core.device_tree import DeviceTree, Level
+from repro_torch.core.grid import Grid
+from repro_torch.core.hybrid import HybridTree
+
+
+def _t(a, dev: torch.device, dtype=None) -> torch.Tensor:
+    arr = np.asarray(a)
+    if dtype is not None:
+        arr = arr.astype(dtype)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def tree_from_reference(tree, device: str | torch.device = "cuda"
+                        ) -> DeviceTree:
+    """A reference ``DeviceTree`` → the port's, on ``device``."""
+    dev = resolve_device(device)
+    return DeviceTree(
+        levels=tuple(Level(mbrs=_t(lv.mbrs, dev, np.float32),
+                           parent=_t(lv.parent, dev, np.int32))
+                     for lv in tree.levels),
+        leaf_entries=_t(tree.leaf_entries, dev, np.float32),
+        leaf_entry_ids=_t(tree.leaf_entry_ids, dev, np.int32),
+        leaf_counts=_t(tree.leaf_counts, dev, np.int32),
+        n_points=int(tree.n_points),
+        max_entries=int(tree.max_entries),
+    )
+
+
+def hybrid_from_reference(h, device: str | torch.device = "cuda"
+                          ) -> HybridTree:
+    """A fitted reference ``HybridTree`` (MLP bank) → the port's."""
+    dev = resolve_device(device)
+    ait, bank, router = h.ait, h.ait.bank, h.router
+    if getattr(ait, "kind", "mlp") != "mlp":
+        raise NotImplementedError(f"{ait.kind} banks are not ported yet")
+    port_bank = MLPBank(
+        w1=_t(bank.w1, dev, np.float32), b1=_t(bank.b1, dev, np.float32),
+        w2=_t(bank.w2, dev, np.float32), b2=_t(bank.b2, dev, np.float32),
+        mu=_t(bank.mu, dev, np.float32), sd=_t(bank.sd, dev, np.float32),
+        label_map=_t(bank.label_map, dev, np.int32),
+        lmask=_t(bank.lmask, dev, bool))
+    grid = Grid(bbox=_t(ait.grid.bbox, dev, np.float32), g=int(ait.grid.g))
+    port_ait = make_aitree(grid, port_bank, max_cells=int(ait.max_cells),
+                           max_pred=int(ait.max_pred),
+                           threshold=float(ait.threshold),
+                           cell_ok=_t(ait.cell_ok, dev, bool))
+    port_router = Router(feat_idx=_t(router.feat_idx, dev, np.int32),
+                         thresh=_t(router.thresh, dev, np.float32),
+                         tables=_t(router.tables, dev, np.float32),
+                         tau=float(router.tau))
+    return HybridTree(tree=tree_from_reference(h.tree, dev), ait=port_ait,
+                      router=port_router)

@@ -1,0 +1,183 @@
+"""Batch scheduler: fixed-size serving batches over one query stream.
+
+Queries are cut into fixed-size batches (the ragged tail padded with its
+last query), served, and restored to submission order; rows whose
+truncation flag is set (R-path ``max_visited`` overflow — their
+``n_results`` undercounts) are collected across the whole stream and
+re-served on a wide-bound tier.
+
+This slice serves in arrival order (``sort="none"``). The Hilbert/Morton
+curve keys that sort batches spatially come with the ``spatial_key``
+kernel in the next slice of the port.
+
+Everything here is host-side orchestration (numpy permutations around the
+serve step); the device-side work stays in the serve step itself.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+SORT_MODES = ("none", "morton", "hilbert")
+
+
+def workload_bbox(queries: np.ndarray) -> np.ndarray:
+    """[Q, 4] rects → [4] bounding box of the rect *centers*.
+
+    Degenerate extents (a single query, or every center coincident along
+    an axis) are widened to a unit span around the collapsed value, so a
+    key frame always has positive area.
+    """
+    c = (np.asarray(queries)[:, :2] + np.asarray(queries)[:, 2:]) / 2.0
+    lo, hi = c.min(axis=0), c.max(axis=0)
+    flat = hi - lo <= 0
+    lo = np.where(flat, lo - 0.5, lo)
+    hi = np.where(flat, hi + 0.5, hi)
+    return np.concatenate([lo, hi]).astype(np.float32)
+
+
+def spatial_keys(queries: np.ndarray, sort: str,
+                 bbox: Optional[np.ndarray] = None) -> np.ndarray:
+    """[Q, 4] → [Q] i32 curve keys (zeros for ``sort="none"``)."""
+    if sort not in SORT_MODES:
+        raise ValueError(f"sort must be one of {SORT_MODES}, got {sort!r}")
+    if sort != "none":
+        raise NotImplementedError(
+            f"sort={sort!r} needs the spatial_key kernel, which comes with "
+            "the next slice of the port (spatial_key + the Hilbert/Morton "
+            "scheduler); use sort='none'")
+    return np.zeros((np.asarray(queries).shape[0],), np.int32)
+
+
+class Schedule(NamedTuple):
+    """A batching plan over one query stream."""
+    order: np.ndarray    # [Q] i32 — stream position → submission index
+    inv: np.ndarray      # [Q] i32 — submission index → stream position
+    n_queries: int
+    batch: int
+    n_batches: int       # ceil(Q / batch); the tail batch is padded
+    sort: str
+
+
+def make_schedule(queries: np.ndarray, batch: int, sort: str = "none",
+                  bbox: Optional[np.ndarray] = None) -> Schedule:
+    """Key-sorted batch formation (stable, so scheduling is always a pure
+    permutation). ``sort="none"`` keeps submission order."""
+    q = np.asarray(queries, np.float32)
+    n = q.shape[0]
+    if n == 0 or batch <= 0:
+        raise ValueError(f"need n_queries > 0 and batch > 0, got {n}/{batch}")
+    keys = spatial_keys(q, sort, bbox)
+    order = np.argsort(keys, kind="stable").astype(np.int32)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(n, dtype=np.int32)
+    return Schedule(order=order, inv=inv, n_queries=n, batch=int(batch),
+                    n_batches=-(-n // int(batch)), sort=sort)
+
+
+def iter_batches(queries: np.ndarray, sched: Schedule
+                 ) -> Iterator[tuple[np.ndarray, int]]:
+    """Yield ``(q [batch, 4] f32, n_valid)`` per stream batch.
+
+    Every batch has the full static shape; the ragged tail is padded by
+    repeating its last valid query, whose stats are simply dropped.
+    """
+    q = np.asarray(queries, np.float32)[sched.order]
+    for b in range(sched.n_batches):
+        lo = b * sched.batch
+        chunk = q[lo:lo + sched.batch]
+        n_valid = chunk.shape[0]
+        if n_valid < sched.batch:
+            pad = np.repeat(chunk[-1:], sched.batch - n_valid, axis=0)
+            chunk = np.concatenate([chunk, pad], axis=0)
+        yield chunk, n_valid
+
+
+def _to_host(stats):
+    """A stats NamedTuple of tensors → the same NamedTuple of numpy."""
+    return type(stats)(*(t.cpu().numpy() if torch.is_tensor(t)
+                         else np.asarray(t) for t in stats))
+
+
+def _rows(stats, sel):
+    """Apply a leading-axis selection to every array of a stats tuple."""
+    return type(stats)(*(np.asarray(a)[sel] for a in stats))
+
+
+def _merge_rows(narrow, wide, idx: np.ndarray):
+    """Replace ``narrow``'s rows at ``idx`` with ``wide``'s, field-wise.
+
+    The wide tier's slot-table fields (result ids, ...) can be wider than
+    the narrow tier's; they are rank-prefix tables, so wide rows are
+    sliced to the narrow field shape.
+    """
+    merged = {}
+    for f in type(narrow)._fields:
+        a = np.asarray(getattr(narrow, f)).copy()
+        w = np.asarray(getattr(wide, f))
+        if w.shape[1:] != a.shape[1:]:
+            if any(ws < ns for ws, ns in zip(w.shape[1:], a.shape[1:])):
+                raise ValueError(
+                    f"wide tier field {f!r} narrower than narrow tier's: "
+                    f"{w.shape} vs {a.shape}")
+            w = w[(slice(None),) + tuple(slice(0, n) for n in a.shape[1:])]
+        a[idx] = w
+        merged[f] = a
+    return type(narrow)(**merged)
+
+
+class ServeReport(NamedTuple):
+    """Aggregate result of one scheduled stream."""
+    stats: object           # per-query stats (numpy), submission order
+    n_queries: int
+    n_batches: int
+    n_reserved: int         # rows re-served on the wide tier
+    wide_batches: int
+    sort: str
+
+
+def serve_workload(serve_fn: Callable, queries: np.ndarray, *, batch: int,
+                   sort: str = "none",
+                   bbox: Optional[np.ndarray] = None,
+                   wide_fn: Optional[Callable] = None,
+                   trunc_field: str = "truncated",
+                   device: str | torch.device = "cuda") -> ServeReport:
+    """Serve a full query stream through the scheduler.
+
+    ``serve_fn``: ``[batch, 4]`` tensor on ``device`` → stats NamedTuple
+    of per-query tensors (e.g. a ``hybrid_query`` closure). Every query is
+    served exactly once and the returned stats (numpy) are in submission
+    order. With ``wide_fn`` (same signature, wider bounds) rows whose
+    ``trunc_field`` is set are re-served through it and their rows
+    replaced (see ``_merge_rows``).
+    """
+    dev = torch.device(device)
+    sched = make_schedule(queries, batch, sort, bbox)
+    outs = []
+    for chunk, n_valid in iter_batches(queries, sched):
+        stats = _to_host(serve_fn(torch.from_numpy(chunk).to(dev)))
+        outs.append(_rows(stats, np.s_[:n_valid]))
+    stream = type(outs[0])(*(np.concatenate(xs, axis=0)
+                             for xs in zip(*outs)))
+    result = _rows(stream, sched.inv)   # back to submission order
+
+    n_reserved = wide_batches = 0
+    if wide_fn is not None and trunc_field is not None \
+            and hasattr(result, trunc_field):
+        trunc = np.asarray(getattr(result, trunc_field)).astype(bool)
+        idx = np.flatnonzero(trunc)
+        n_reserved = int(idx.size)
+        if n_reserved:
+            wide = serve_workload(wide_fn,
+                                  np.asarray(queries, np.float32)[idx],
+                                  batch=batch, sort=sort, bbox=bbox,
+                                  wide_fn=None, trunc_field=None,
+                                  device=dev)
+            wide_batches = wide.n_batches
+            result = _merge_rows(result, wide.stats, idx)
+    return ServeReport(stats=result, n_queries=sched.n_queries,
+                       n_batches=sched.n_batches, n_reserved=n_reserved,
+                       wide_batches=wide_batches, sort=sort)

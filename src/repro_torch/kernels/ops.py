@@ -1,0 +1,248 @@
+"""Dispatch for the serving path's kernels: the device decides.
+
+Each wrapper takes its inputs in the reference's layout, does the small
+shape work the kernel needs, and then runs
+
+* the plain PyTorch version (``kernels.ref``) when the tensors lie on the
+  CPU, or
+* the hand-written CUDA kernel (``kernels.cuda``) when they lie on a CUDA
+  device — always; a kernel that fails to build or launch raises.
+
+There is no environment switch and no fallback between the two. Each CUDA
+launch adds one to that kernel's count (``launch_counts``).
+
+``prepare(name, ...)`` exposes the CUDA path split in two: it validates
+and lays out the inputs, allocates the outputs, and returns
+``(launch, outputs)`` where ``launch()`` issues only the kernel — what a
+benchmark times.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import cuda as _cuda
+
+# Leaves per CTA along the leaf axis of the traversal kernel's grid, and
+# queries per CTA (kQT in csrc/traverse_fused.cu).
+TRAVERSE_LEAF_CHUNK = 2048
+TRAVERSE_QUERY_TILE = 8
+# Shared memory one CTA may ask for on sm_90 (232,448 bytes, less room
+# for the kernels' static shared memory).
+MAX_DYNAMIC_SMEM = 227 * 1024 - 1024
+
+launch_counts = _cuda.launch_counts
+reset_launch_counts = _cuda.reset_launch_counts
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"kernel inputs must all lie on the CPU or all on one "
+                     f"CUDA device, got {sorted(kinds)}")
+
+
+def _c(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.to(dtype).contiguous()
+
+
+def _launcher(name: str, device: torch.device, *args) -> Callable[[], None]:
+    """A closure that launches kernel ``name`` on ``device``'s current
+    stream. ``args`` mixes tensors (passed as device pointers; the closure
+    keeps them alive) and plain ints/floats/ctypes values."""
+    kernel = _cuda.KERNELS[name]
+    cargs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+
+    def launch() -> None:
+        with torch.cuda.device(device):
+            kernel(*cargs, torch.cuda.current_stream(device).cuda_stream)
+    launch.tensors = args   # keeps every pointer in cargs alive
+    return launch
+
+
+# ---------------------------------------------------------------------------
+# preparation of each CUDA launch
+# ---------------------------------------------------------------------------
+
+def _prep_traverse_fused(queries, level_mbrs, level_parents):
+    B = queries.shape[0]
+    L = level_mbrs[-1].shape[0]
+    dev = queries.device
+    sizes = [int(m.shape[0]) for m in level_mbrs[:-1]]
+    width = max(sizes, default=1)
+    smem = 2 * TRAVERSE_QUERY_TILE * width
+    if smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(
+            f"traverse_fused: an internal level of {width} nodes needs "
+            f"{smem} bytes of shared memory (> {MAX_DYNAMIC_SMEM}); trees "
+            "this large need the ancestor-sliced walk, not yet ported")
+    q = _c(queries, torch.float32)
+    n_int = len(level_mbrs) - 1
+    if n_int:
+        int_mbrs = _c(torch.cat(list(level_mbrs[:-1])), torch.float32)
+        int_par = _c(torch.cat(list(level_parents[:-1])), torch.int32)
+    else:   # never read: the kernel walks zero internal levels
+        int_mbrs, int_par = q, q
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + n)
+    h_offs = (ctypes.c_int * len(offs))(*offs)
+    out = torch.empty((B, L), dtype=torch.bool, device=dev)
+    launch = _launcher(
+        "traverse_fused", dev, q, B, int_mbrs, int_par, h_offs, n_int,
+        _c(level_mbrs[-1], torch.float32), _c(level_parents[-1], torch.int32),
+        L, TRAVERSE_LEAF_CHUNK, out)
+    return launch, out
+
+
+def _prep_leaf_refine(queries, leaf_entries, safe_idx, valid):
+    B, K = safe_idx.shape
+    M = leaf_entries.shape[1]
+    out = torch.empty((B, K, M), dtype=torch.bool, device=queries.device)
+    launch = _launcher(
+        "leaf_refine", queries.device, _c(queries, torch.float32),
+        _c(leaf_entries, torch.float32), M, _c(safe_idx, torch.int32),
+        _c(valid, torch.bool), B, K, out)
+    return launch, out
+
+
+def _prep_mlp_predict_compact(x, cid, slot_ok, bank, n_leaves, k, threshold):
+    C, F, H = bank.w1.shape
+    Cl = bank.w2.shape[-1]
+    B, S = cid.shape
+    smem = (F + H) * 4 + (n_leaves + 31) // 32 * 4
+    if smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"mlp_predict_compact: {n_leaves} leaves need "
+                         f"{smem} bytes of shared memory")
+    idx = torch.empty((B, k), dtype=torch.int32, device=x.device)
+    cnt = torch.empty((B,), dtype=torch.int32, device=x.device)
+    launch = _launcher(
+        "mlp_predict_compact", x.device, _c(x, torch.float32),
+        _c(cid, torch.int32), _c(slot_ok, torch.bool),
+        _c(bank.w1, torch.float32), _c(bank.b1, torch.float32),
+        _c(bank.w2, torch.float32), _c(bank.b2, torch.float32),
+        _c(bank.label_map, torch.int32), _c(bank.lmask, torch.bool),
+        B, S, F, H, Cl, n_leaves, k, float(threshold), idx, cnt)
+    return launch, (idx, cnt)
+
+
+def _prep_forest_infer(sel, thresh, tables):
+    B, T, D = sel.shape
+    C = tables.shape[-1]
+    if tuple(tables.shape[:2]) != (T, 2 ** D):
+        raise ValueError(f"forest tables {tuple(tables.shape)} do not match "
+                         f"T={T}, D={D}")
+    out = torch.empty((B, C), dtype=torch.float32, device=sel.device)
+    launch = _launcher(
+        "forest_infer", sel.device, _c(sel, torch.float32),
+        _c(thresh, torch.float32), _c(tables, torch.float32), B, T, D, C,
+        out)
+    return launch, out
+
+
+_PREP = {"traverse_fused": _prep_traverse_fused,
+         "leaf_refine": _prep_leaf_refine,
+         "mlp_predict_compact": _prep_mlp_predict_compact,
+         "forest_infer": _prep_forest_infer}
+
+
+def prepare(name: str, *args):
+    """``(launch, outputs)`` for kernel ``name`` on already-shaped CUDA
+    inputs (the arguments of its ``_prep_*`` function)."""
+    return _PREP[name](*args)
+
+
+# ---------------------------------------------------------------------------
+# public wrappers
+# ---------------------------------------------------------------------------
+
+def traverse_fused(queries: torch.Tensor,
+                   level_mbrs: Sequence[torch.Tensor],
+                   level_parents: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Fused root→leaf traversal: [B, 4] → visited-leaf mask [B, L] bool.
+
+    ``level_mbrs``: one [N_l, 4] tensor per level, root first, leaf level
+    last; ``level_parents``: matching [N_l] i32 index into the level above
+    (entry 0 unused). A single-level tree (root == leaves) needs no
+    special case: the kernel walks zero internal levels.
+    """
+    if not _on_cuda(queries, *level_mbrs, *level_parents):
+        return ref.traverse_fused(queries, level_mbrs, level_parents)
+    launch, out = _prep_traverse_fused(queries, level_mbrs, level_parents)
+    if out.numel():
+        launch()
+    return out
+
+
+def leaf_refine(queries: torch.Tensor, leaf_entries: torch.Tensor,
+                leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """queries [B,4], leaf_entries [L,M,2], leaf_idx [B,K], valid [B,K]
+    → inside [B, K, M] bool. Slot ids are clamped into [0, L) first
+    (padded slots are masked by ``valid``)."""
+    safe_idx = torch.clamp(leaf_idx, 0, leaf_entries.shape[0] - 1)
+    if not _on_cuda(queries, leaf_entries, leaf_idx, valid):
+        return ref.leaf_refine(queries, leaf_entries[..., 0],
+                               leaf_entries[..., 1], safe_idx, valid)
+    launch, out = _prep_leaf_refine(queries, leaf_entries, safe_idx, valid)
+    if out.numel():
+        launch()
+    return out
+
+
+def mlp_inputs(queries: torch.Tensor, bank, cell_ids: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's inputs: normalized features ``(q - mu) / sd`` and
+    cell ids clipped into [0, C)."""
+    x = (queries.to(torch.float32) - bank.mu) / bank.sd
+    cid = torch.clamp(cell_ids.to(torch.int32), 0, bank.w1.shape[0] - 1)
+    return x, cid
+
+
+def mlp_predict_compact(queries: torch.Tensor, bank, cell_ids: torch.Tensor,
+                        slot_ok: torch.Tensor, *, n_leaves: int, k: int,
+                        threshold: float
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused AI-path prediction: queries [B, 4] + cell routing → compact
+    predicted-leaf slots ``(leaf_idx [B, k] i32, valid [B, k] bool,
+    count [B] i32)``.
+
+    Semantically ``compact_mask_counted(predict_scores(...) > threshold,
+    k)``; on the card the ``[B, n_leaves]`` score table never exists.
+    ``bank`` is an ``MLPBank``; ``cell_ids``/``slot_ok`` [B, S] come from
+    ``grid.cells_of_queries``. Requires ``threshold ≥ 0``.
+    """
+    if threshold < 0:
+        raise ValueError("mlp_predict_compact needs threshold >= 0")
+    x, cid = mlp_inputs(queries, bank, cell_ids)
+    if not _on_cuda(x, cid, slot_ok, bank.w1):
+        return ref.mlp_predict_compact(
+            x, cid, slot_ok, bank.w1, bank.b1, bank.w2, bank.b2,
+            bank.label_map, bank.lmask, n_leaves=n_leaves, k=k,
+            threshold=threshold)
+    launch, (idx, cnt) = _prep_mlp_predict_compact(
+        x, cid, slot_ok, bank, n_leaves, k, threshold)
+    if cnt.numel():
+        launch()
+    valid = torch.arange(k, dtype=torch.int32, device=x.device)[None, :] \
+        < cnt[:, None]
+    return idx, valid, cnt
+
+
+def forest_infer(features: torch.Tensor, feat_idx: torch.Tensor,
+                 thresh: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """features [B,F], feat_idx [T,D] i32, thresh [T,D], tables [T,2^D,C]
+    → scores [B,C] (votes summed over trees in ascending order)."""
+    sel = features[:, feat_idx.long()]            # [B, T, D] pre-gather
+    if not _on_cuda(sel, thresh, tables):
+        return ref.forest_infer(sel, thresh, tables)
+    launch, out = _prep_forest_infer(sel, thresh, tables)
+    if out.numel():
+        launch()
+    return out

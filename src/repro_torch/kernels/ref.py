@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of the four CUDA kernels on the serving path.
+
+Each function computes exactly what its kernel computes and is what
+``kernels.ops`` runs for tensors on the CPU. The tests hold these against
+the JAX package's kernels; ``chip_smoke.py`` holds the CUDA kernels
+against these on the card. They are not a speed yardstick.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import geometry as geo
+
+
+def mbr_intersect(queries: torch.Tensor, mbrs: torch.Tensor) -> torch.Tensor:
+    """[B, 4] × [N, 4] → [B, N] bool (closed-rectangle intersection)."""
+    return geo.torch_cross_intersects(queries.to(torch.float32),
+                                      mbrs.to(torch.float32))
+
+
+def traverse_fused(queries: torch.Tensor, level_mbrs: Sequence[torch.Tensor],
+                   level_parents: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Level-synchronous root→leaf walk: [B, 4] → visited-leaf mask [B, L].
+
+    ``level_mbrs``: one [N_l, 4] per level, root first (leaf level last);
+    ``level_parents``: matching [N_l] i32 (entry 0 unused). A leaf is
+    visited iff every ancestor MBR and its own intersect the query.
+    """
+    mask = mbr_intersect(queries, level_mbrs[0])
+    for mbrs, parent in zip(level_mbrs[1:], level_parents[1:]):
+        mask = mask[:, parent.long()] & mbr_intersect(queries, mbrs)
+    return mask
+
+
+def leaf_refine(queries: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor,
+                leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """queries [B,4], ex/ey [L,M], leaf_idx [B,K], valid [B,K] → [B,K,M]
+    exact point-in-rect containment of the named leaves' entries."""
+    li = leaf_idx.long()
+    pts = torch.stack([ex[li], ey[li]], dim=-1).to(torch.float32)
+    ok = geo.torch_contains_point(
+        queries.to(torch.float32)[:, None, None, :], pts)   # [B, K, M]
+    return ok & valid.to(torch.bool)[:, :, None]
+
+
+def mlp_predict_scores(x: torch.Tensor, cell_ids: torch.Tensor,
+                       slot_ok: torch.Tensor, w1: torch.Tensor,
+                       b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                       label_map: torch.Tensor, lmask: torch.Tensor,
+                       n_leaves: int) -> torch.Tensor:
+    """Dense AI-path scores: normalized features [B, F] → [B, n_leaves].
+
+    Gathered per-cell MLP forward (sum over F, then over H), sigmoid, and
+    the max-union scatter of every valid (slot, label) score into its
+    global leaf id.
+    """
+    B, S = cell_ids.shape
+    ci = cell_ids.long()
+    w1g = w1[ci]                                    # [B, S, F, H]
+    w2g = w2[ci]                                    # [B, S, H, Cl]
+    h = torch.relu(torch.einsum("bf,bsfh->bsh", x.to(torch.float32), w1g)
+                   + b1[ci])
+    probs = torch.sigmoid(torch.einsum("bsh,bshl->bsl", h, w2g) + b2[ci])
+    lm = label_map[ci].long()                       # [B, S, Cl]
+    ok = slot_ok.to(torch.bool)[:, :, None] & lmask[ci]
+    tgt = torch.where(ok, lm, n_leaves)             # park invalid at L
+    Cl = lm.shape[-1]
+    flat_t = tgt.reshape(B, S * Cl)
+    flat_p = torch.where(ok, probs, 0.0).reshape(B, S * Cl)
+    out = torch.zeros((B, n_leaves + 1), dtype=probs.dtype, device=x.device)
+    out.scatter_reduce_(1, flat_t, flat_p, reduce="amax", include_self=True)
+    return out[:, :n_leaves]
+
+
+def mlp_predict_compact(x: torch.Tensor, cell_ids: torch.Tensor,
+                        slot_ok: torch.Tensor, w1: torch.Tensor,
+                        b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                        label_map: torch.Tensor, lmask: torch.Tensor, *,
+                        n_leaves: int, k: int, threshold: float
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense scores → threshold → ``compact_mask_counted``: ``(leaf_idx
+    [B, k] i32, valid [B, k] bool, count [B] i32)`` — the first ``k``
+    predicted leaves in leaf-id order and the distinct predicted count."""
+    from repro_torch.core.traversal import compact_mask_counted
+    scores = mlp_predict_scores(x, cell_ids, slot_ok, w1, b1, w2, b2,
+                                label_map, lmask, n_leaves)
+    return compact_mask_counted(scores > threshold, k)
+
+
+def forest_infer(sel: torch.Tensor, thresh: torch.Tensor,
+                 tables: torch.Tensor) -> torch.Tensor:
+    """sel [B,T,D], thresh [T,D], tables [T,2^D,C] → summed votes [B,C].
+
+    Trees are summed in ascending ``t``, the order the CUDA kernel (and the
+    TPU kernel's grid) accumulates, so the two agree bit for bit.
+    """
+    B, T, D = sel.shape
+    bits = (sel.to(torch.float32) > thresh[None].to(torch.float32))
+    powers = 2 ** torch.arange(D - 1, -1, -1, dtype=torch.int64,
+                               device=sel.device)
+    leaf = torch.sum(bits.long() * powers[None, None, :], dim=-1)   # [B, T]
+    tab = tables.to(torch.float32)
+    out = torch.zeros((B, tables.shape[-1]), dtype=torch.float32,
+                      device=sel.device)
+    for t in range(T):
+        out = out + tab[t][leaf[:, t]]
+    return out

@@ -1,0 +1,71 @@
+"""Seeded numpy inputs with edge rows for the PyTorch port's kernel tests.
+
+Shared by ``tests/test_torch_kernels.py`` (plain versions against the JAX
+package, on the CPU) and ``tests/test_torch_cuda.py`` (CUDA kernels
+against the plain versions, on the card, where JAX is not installed), so
+this module imports only numpy.
+"""
+import numpy as np
+
+
+def rects(rng, n, lo=0.0, hi=1.0, size=0.1):
+    a = rng.uniform(lo, hi, (n, 2)).astype(np.float32)
+    return np.concatenate(
+        [a, a + rng.uniform(0, size, (n, 2)).astype(np.float32)], 1)
+
+
+def levels(rng, L=300, n1=12):
+    """A three-level tree: root, n1 internal nodes, L leaves, with
+    contiguous children and tight MBRs (as ``flatten`` lays them out)."""
+    leaf = rects(rng, L, size=0.08)
+    lp = np.sort(rng.integers(0, n1, L)).astype(np.int32)
+    mid = np.array([[2, 2, -2, -2]] * n1, np.float32)
+    for i in range(n1):
+        s = leaf[lp == i]
+        if len(s):
+            mid[i] = [s[:, 0].min(), s[:, 1].min(), s[:, 2].max(),
+                      s[:, 3].max()]
+    root = np.array([[mid[:, 0].min(), mid[:, 1].min(), mid[:, 2].max(),
+                      mid[:, 3].max()]], np.float32)
+    return ([root, mid, leaf],
+            [np.zeros(1, np.int32), np.zeros(n1, np.int32), lp])
+
+
+def edge_queries(rng, leaf):
+    """Random rects plus the edge rows: empty (far away), a degenerate
+    rect exactly on a leaf's corner, one touching an MBR edge."""
+    q = rects(rng, 40, -0.1, 1.0, 0.15)
+    q[0] = [5, 5, 6, 6]                                  # empty
+    q[1] = [leaf[3, 0], leaf[3, 1], leaf[3, 0], leaf[3, 1]]
+    q[2] = [leaf[7, 2], leaf[7, 1], leaf[7, 2] + 0.01, leaf[7, 3]]
+    return q
+
+
+def edge_bank(rng, L=200, k=6):
+    """A bank whose predictions are set by the biases alone (w = 0), so
+    rows can be pinned to 0, exactly k, and k + 1 predicted leaves.
+
+    Cell 0 predicts k distinct leaves, cell 1 one more leaf, cell 2 the
+    same leaves as cell 0 (a duplicate across cells counts once), cell 3
+    nothing. Cells 4.. are random.
+    """
+    C, F, H, Cl = 8, 4, 8, k + 2
+    w1 = rng.normal(0, 1, (C, F, H)).astype(np.float32)
+    w2 = rng.normal(0, 1, (C, H, Cl)).astype(np.float32)
+    b1 = rng.normal(0, 1, (C, H)).astype(np.float32)
+    b2 = rng.normal(0, 1, (C, Cl)).astype(np.float32)
+    lm = rng.integers(0, L, (C, Cl)).astype(np.int32)
+    lmask = rng.uniform(size=(C, Cl)) < 0.8
+    pinned = np.arange(10, 10 + k + 1, dtype=np.int32)
+    for c in range(4):
+        w1[c] = 0
+        w2[c] = 0
+        b2[c] = -9.0
+        lmask[c] = True
+    lm[0, :k], b2[0, :k] = pinned[:k], 9.0
+    lm[1, 0], b2[1, 0] = pinned[k], 9.0
+    lm[2, :k], b2[2, :k] = pinned[:k], 9.0
+    lm[3] = pinned[0]
+    lm[~lmask] = -1
+    return dict(w1=w1, b1=b1, w2=w2, b2=b2, mu=np.zeros(F, np.float32),
+                sd=np.ones(F, np.float32), label_map=lm, lmask=lmask)

@@ -1,0 +1,124 @@
+"""The four CUDA kernels against their plain PyTorch versions, on the card.
+
+Card-only (marker ``gpu``): every test takes the ``cuda`` fixture, which
+skips when no CUDA device is present, so on a CPU-only machine the file
+collects and skips. On the card run it with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+The inputs are the edge-row sets of ``tests/test_torch_kernels.py``
+(which holds the plain versions against the JAX package; the inputs
+live in ``tests/helpers/torch_inputs.py``), moved to the
+card; the kernels must agree bit for bit, and each call must launch its
+kernel once.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import cuda as kcuda, ops, ref  # noqa: E402
+# pytest puts tests/ on sys.path (it has no __init__.py); the card's
+# environment may carry another top-level ``tests`` package
+from helpers.torch_inputs import (  # noqa: E402
+    edge_bank, edge_queries, levels, rects)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import resolve_device
+    return resolve_device("cuda")
+
+
+def _g(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _launched(name, fn):
+    before = kcuda.KERNELS[name].launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert kcuda.KERNELS[name].launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("n_levels", [3, 1])
+def test_traverse_fused_kernel(cuda, n_levels):
+    rng = np.random.default_rng(0)
+    mbrs, parents = levels(rng, L=5000, n1=90)
+    if n_levels == 1:
+        mbrs, parents = mbrs[-1:], [np.zeros(len(mbrs[-1]), np.int32)]
+    q = _g(edge_queries(rng, mbrs[-1]), cuda)
+    mb = [_g(m, cuda) for m in mbrs]
+    pa = [_g(p, cuda) for p in parents]
+    got = _launched("traverse_fused", lambda: ops.traverse_fused(q, mb, pa))
+    assert torch.equal(got, ref.traverse_fused(q, mb, pa))
+
+
+def test_leaf_refine_kernel(cuda):
+    rng = np.random.default_rng(1)
+    L, M, B, K = 400, 128, 96, 64
+    ent = rng.uniform(0, 1, (L, M, 2)).astype(np.float32)
+    ent[:, 100:] = np.inf
+    q = rects(rng, B, 0, 0.8, 0.4)
+    idx = rng.integers(-5, L + 5, (B, K)).astype(np.int32)
+    valid = rng.uniform(size=(B, K)) < 0.75
+    valid[(idx < 0) | (idx >= L)] = False
+    valid[3] = False
+    args = [_g(a, cuda) for a in (q, ent, idx, valid)]
+    got = _launched("leaf_refine", lambda: ops.leaf_refine(*args))
+    safe = torch.clamp(args[2], 0, L - 1)
+    want = ref.leaf_refine(args[0], args[1][..., 0], args[1][..., 1], safe,
+                           args[3])
+    assert torch.equal(got, want) and not got[3].any()
+
+
+def test_forest_infer_kernel(cuda):
+    rng = np.random.default_rng(2)
+    B, F, T, D = 700, 6, 16, 6
+    x = rng.normal(size=(B, F)).astype(np.float32)
+    fi = rng.integers(0, F, (T, D)).astype(np.int32)
+    th = rng.normal(size=(T, D)).astype(np.float32)
+    x[0, fi[0, 0]] = th[0, 0]
+    tb = rng.uniform(0, 1, (T, 2 ** D, 1)).astype(np.float32)
+    args = [_g(a, cuda) for a in (x, fi, th, tb)]
+    got = _launched("forest_infer", lambda: ops.forest_infer(*args))
+    want = ref.forest_infer(args[0][:, args[1].long()], args[2], args[3])
+    assert torch.equal(got, want)
+
+
+def test_mlp_predict_compact_kernel(cuda):
+    rng = np.random.default_rng(3)
+    L, k, B, S = 200, 6, 48, 4
+    arrays = edge_bank(rng, L, k)
+
+    class Bank:
+        pass
+
+    bank = Bank()
+    for name, a in arrays.items():
+        setattr(bank, name, _g(a, cuda))
+    q = _g(rng.normal(size=(B, 4)).astype(np.float32), cuda)
+    cid = rng.integers(0, 8, (B, S)).astype(np.int32)
+    ok = rng.uniform(size=(B, S)) < 0.8
+    cid[:3] = [[3, 3, 3, 3], [0, 3, 3, 3], [0, 1, 3, 3]]
+    ok[:3] = True
+    cid, ok = _g(cid, cuda), _g(ok, cuda)
+    idx, valid, cnt = _launched("mlp_predict_compact",
+                                lambda: ops.mlp_predict_compact(
+                                    q, bank, cid, ok, n_leaves=L, k=k,
+                                    threshold=0.5))
+    x, c = ops.mlp_inputs(q, bank, cid)
+    pidx, pvalid, pcnt = ref.mlp_predict_compact(
+        x, c, ok, bank.w1, bank.b1, bank.w2, bank.b2, bank.label_map,
+        bank.lmask, n_leaves=L, k=k, threshold=0.5)
+    scores = ref.mlp_predict_scores(x, c, ok, bank.w1, bank.b1, bank.w2,
+                                    bank.b2, bank.label_map, bank.lmask, L)
+    keep = ~((scores - 0.5).abs() < 1e-5).any(1)
+    assert torch.equal(idx[keep], pidx[keep])
+    assert torch.equal(cnt[keep], pcnt[keep])
+    assert cnt[:3].tolist() == [0, k, k + 1]
