@@ -9,19 +9,23 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each failing the run (non-zero exit) on its own error:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. build the serving index through ``repro_torch.launch.serve`` at the
    Chicago Crimes scale of the paper (872K points, node capacity 128,
    4096 queries at selectivity 5e-5, MLP bank);
 4. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it plus edge rows, and time both;
-5. stream the workload through ``hybrid_query`` (batch 512, narrow
-   ``max_visited`` 64, wide tier x8, arrival order) with every launch
+   shapes the serving paths give it plus edge rows, and time both;
+5. stream the range workload through ``hybrid_query`` in Hilbert order
+   (batch 512, narrow ``max_visited`` 64, wide tier x8) with every launch
    count reset just before and read just after; check the ``# oracle``
    against the workload labels and 512 sampled queries against f32
-   brute-force containment;
-6. print the ``kernels:`` line, the serving rates beside the card, the
+   brute-force containment; serve the same stream in arrival order as a
+   comparison (reported, not gated) and profile both;
+6. on the same index, serve a kNN, a spatial-join and a point stream
+   (4096 queries each, one timed repetition), each with its launch
+   counts reset and read around it and its oracle at 0 mismatches;
+7. print the ``kernels:`` line, the serving rates beside the card, the
    per-kernel JSON line, and the contract's last line.
 
 It imports neither JAX nor the JAX package, and refuses to run without a
@@ -42,6 +46,7 @@ SRC = ROOT / "src"
 
 # Deployment: the paper's Chicago Crimes dataset size (872K points).
 POINTS = 872_000
+QUERIES = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
 NEAR = 1e-5                      # MLP scores this close to the threshold
@@ -121,6 +126,27 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_row(name, mism, launch, plain, n_bytes, n_ops,
+               max_abs_err=0.0) -> dict:
+    """Time ``launch`` (the kernel alone) and ``plain`` on the card, print
+    them beside the bound, and return the kernel's JSON row (launch
+    count filled in later)."""
+    from repro_torch.kernels import cuda as kcuda
+    b, by = bound_ms(n_bytes, n_ops)
+    k = kcuda.KERNELS[name]
+    ms, src = device_ms(launch, f"{name}_kernel")
+    plain_ms, psrc = device_ms(plain)
+    print(f"  {name}: {mism} mismatches, kernel {ms:.4f} ms ({src}; "
+          f"{event_ms(launch):.4f} ms between events), plain "
+          f"{plain_ms:.4f} ms ({psrc}; {event_ms(plain):.4f} ms between "
+          f"events), bound {b:.4f} ms ({by})")
+    return {"name": name, "route": "cuda",
+            "source": str(k.source.relative_to(ROOT)),
+            "replaces": k.replaces, "launches": 0,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
 def kernel_checks(idx, args, dev) -> list:
     """Phase 4: each kernel against its plain version at the serving
     path's shapes (one narrow batch), with edge rows; returns the JSON
@@ -143,20 +169,8 @@ def kernel_checks(idx, args, dev) -> list:
     rows = []
 
     def row(name, mism, launch, plain, n_bytes, n_ops, max_abs_err=0.0):
-        b, by = bound_ms(n_bytes, n_ops)
-        k = kcuda.KERNELS[name]
-        ms, src = device_ms(launch, f"{name}_kernel")
-        plain_ms, psrc = device_ms(plain)
-        print(f"  {name}: {mism} mismatches, kernel {ms:.4f} ms ({src}; "
-              f"{event_ms(launch):.4f} ms between events), plain "
-              f"{plain_ms:.4f} ms ({psrc}; {event_ms(plain):.4f} ms between "
-              f"events), bound {b:.4f} ms ({by})")
-        rows.append({"name": name, "route": "cuda",
-                     "source": str(k.source.relative_to(ROOT)),
-                     "replaces": k.replaces, "launches": 0,
-                     "max_abs_err": max_abs_err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": None})
+        rows.append(kernel_row(name, mism, launch, plain, n_bytes, n_ops,
+                               max_abs_err))
 
     # -- traverse_fused: dense visited mask of one batch
     mb = [lv.mbrs for lv in tree.levels]
@@ -167,11 +181,11 @@ def kernel_checks(idx, args, dev) -> list:
     mism = int((vis != want).sum())
     check(mism == 0, f"traverse_fused: {mism} mismatches")
     check(not bool(vis[0].any()), "traverse_fused: empty row visits leaves")
-    n_int = sum(int(m.shape[0]) for m in mb[:-1])
     L = tree.n_leaves
+    tests, nodes = walk_work(q, mb, pa)
     row("traverse_fused", mism, launch,
         lambda: ref.traverse_fused(q, mb, pa),
-        B * 16 + n_int * 20 + L * 20 + B * L, B * (n_int + L) * 4)
+        B * 16 + nodes * 20 + B * L, tests * 4)
 
     # -- leaf_refine: the narrow R path's slot table, with edge rows
     K = args.max_visited
@@ -191,9 +205,10 @@ def kernel_checks(idx, args, dev) -> list:
     check(mism == 0, f"leaf_refine: {mism} mismatches")
     check(not bool(inside[4].any()), "leaf_refine: empty row matched")
     n_valid = int(valid.sum())
+    n_leaves = int(torch.unique(safe[valid]).numel())
     row("leaf_refine", mism, launch,
         lambda: ref.leaf_refine(q, ex, ey, safe, valid),
-        B * 16 + B * K * 5 + n_valid * M * 8 + B * K * M,
+        B * 16 + B * K * 5 + n_leaves * M * 8 + B * K * M,
         n_valid * M * 4)
 
     # -- mlp_predict_compact: the deployed bank on this batch
@@ -252,7 +267,175 @@ def kernel_checks(idx, args, dev) -> list:
         B * T * D * 4 + T * D * 4 + rt.tables.numel() * 4 + B * Cr * 4,
         B * T * (D + Cr),
         max_abs_err=float((votes - want_v).abs().max()))
+    rows.append(spatial_key_check(idx, dev))
+    rows.append(traverse_compact_check(idx, q, dev))
+    rows.append(knn_browse_check(idx, args, dev))
     return rows
+
+
+def spatial_key_check(idx, dev) -> dict:
+    """spatial_key, both curves, on the stream's 4096 normalized centres
+    plus edge rows (the frame's corners — 1.0 clips to 32767 — centres
+    outside it, exact quantization steps and the floats just below), and
+    through the wrapper with a zero-extent frame. Bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import schedule
+    from repro_torch.kernels import ops, ref
+    wq = idx.workload.queries
+    q = torch.from_numpy(wq).to(dev)
+    bbox = torch.from_numpy(schedule.workload_bbox(wq)).to(dev)
+    cxy = ops.spatial_key_inputs(q, bbox)
+    steps = np.array([1, 2, 3, 1000, 32767], np.float32) / np.float32(32768)
+    edge = [[0, 0], [1, 1], [0, 1], [1, 0], [-0.5, 1.5], [1.5, -0.25],
+            [-1e10, 1e10], [np.inf, -np.inf]] + [[v, v] for v in steps] \
+        + [[np.nextafter(v, np.float32(0)), v] for v in steps]
+    cxy_e = torch.cat([cxy, torch.tensor(np.asarray(edge, np.float32),
+                                         device=dev)])
+    flat = torch.cat([q[0, :2], q[0, :2]])           # zero-extent frame
+    for curve in ("morton", "hilbert"):
+        launch, keys = ops.prepare("spatial_key", cxy_e, curve)
+        launch()
+        mism = int((keys != ref.spatial_key(cxy_e, curve=curve)).sum())
+        cf = ops.spatial_key_inputs(q, flat)
+        launch, kf = ops.prepare("spatial_key", cf, curve)
+        launch()
+        mism += int((kf != ref.spatial_key(cf, curve=curve)).sum())
+        check(mism == 0, f"spatial_key ({curve}): {mism} mismatches")
+        check(int(keys[len(wq) + 1]) == int(keys[len(wq) + 12]),
+              f"spatial_key ({curve}): 1.0 does not clip to 32767")
+    print(f"  spatial_key: both curves bit-equal on {len(wq)} centres, "
+          f"{len(edge)} edge rows and a zero-extent frame")
+    launch, _ = ops.prepare("spatial_key", cxy, "hilbert")
+    n = cxy.shape[0]
+    return kernel_row("spatial_key", 0, launch,
+                      lambda: ref.spatial_key(cxy, curve="hilbert"),
+                      n * 12, n * 15 * 16)
+
+
+def walk_work(q, mb, pa) -> tuple[int, int]:
+    """What a root-to-leaf walk of this batch must do: ``(tests, nodes)``,
+    the (query, node) MBR tests — every node of the top level, and below
+    it the children of the query's visited nodes — and the distinct
+    nodes any query tests, each of which is read once."""
+    import torch
+    from repro_torch.kernels import ref
+    tests = nodes = 0
+    vis = None
+    for m, p in zip(mb, pa):
+        hit = ref.mbr_intersect(q, m)
+        live = torch.ones_like(hit) if vis is None else vis[:, p.long()]
+        tests += int(live.sum())
+        nodes += int(live.any(0).sum())
+        vis = live & hit
+    return tests, nodes
+
+
+def traverse_compact_check(idx, q, dev) -> dict:
+    """traverse_compact at k = 64 (narrow) and 512 (wide) on one batch
+    whose last rows visit 0, exactly k and k + 1 leaves, and on a
+    single-level tree; bit-equal to ``compact_mask_counted`` of the
+    walk."""
+    import torch
+    from repro_torch.core import device_tree as dt
+    from repro_torch.core.rtree import RTree
+    from repro_torch.data import synth
+    from repro_torch.kernels import ops, ref
+    tree = idx.dtree
+    mb = [lv.mbrs for lv in tree.levels]
+    pa = [lv.parent for lv in tree.levels]
+    ks = [k for k in (64, 512) if k + 1 < tree.n_leaves]
+    if ks != [64, 512]:
+        print(f"# CUT: traverse_compact strip rows at k in {ks} only "
+              f"({tree.n_leaves} leaves)")
+    for k in ks:
+        qk = q.clone()
+        qk[-3:] = torch.from_numpy(synth.strip_queries(
+            mb[-1].cpu().numpy(), [0, k, k + 1])).to(dev)
+        launch, (kidx, kcnt) = ops.prepare("traverse_compact", qk, mb, pa, k)
+        launch()
+        pidx, _, pcnt = ref.traverse_compact(qk, mb, pa, k)
+        mism = int((kidx != pidx).sum()) + int((kcnt != pcnt).sum())
+        check(mism == 0, f"traverse_compact (k={k}): {mism} mismatches")
+        check(kcnt[-3:].tolist() == [0, k, k + 1],
+              f"traverse_compact: strip rows visit {kcnt[-3:].tolist()}")
+    one = dt.flatten(RTree.str_bulk(idx.points[:64], max_entries=128),
+                     device=dev)
+    check(one.height == 1, "str_bulk of 64 points is not a single leaf")
+    m1 = [lv.mbrs for lv in one.levels]
+    p1 = [lv.parent for lv in one.levels]
+    q1 = q.clone()
+    q1[-2] = m1[0][0]                                # the leaf's own MBR
+    p0 = one.leaf_entries[0, 0]
+    q1[-1] = torch.cat([p0, p0])                     # one of its points
+    launch, (kidx, kcnt) = ops.prepare("traverse_compact", q1, m1, p1, 64)
+    launch()
+    pidx, _, pcnt = ref.traverse_compact(q1, m1, p1, 64)
+    check(torch.equal(kidx, pidx) and torch.equal(kcnt, pcnt),
+          "traverse_compact: single-level tree differs")
+    check(kcnt[-2:].tolist() == [1, 1],
+          "traverse_compact: single-level tree missed its leaf")
+    print(f"  traverse_compact: bit-equal at k in {ks} (strip rows "
+          f"visit 0, k, k + 1) and on a single-level tree "
+          f"({int(kcnt.sum())} of {q.shape[0]} rows hit its leaf)")
+    launch, (kidx, kcnt) = ops.prepare("traverse_compact", q, mb, pa, 64)
+    tests, nodes = walk_work(q, mb, pa)
+    return kernel_row("traverse_compact", 0, launch,
+                      lambda: ref.traverse_compact(q, mb, pa, 64),
+                      q.shape[0] * 16 + nodes * 20 + q.shape[0] * 65 * 4,
+                      tests * 4)
+
+
+def knn_browse_check(idx, args, dev) -> dict:
+    """knn_browse on the kNN stream's first narrow batch (probe boxes at
+    the default radius, k = 8, slots from traverse_compact), with invalid
+    slots, an all-invalid row and an entry exactly at d2 == r2; the
+    deployment's leaves hold fewer than 128 entries (+inf padding).
+    Bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import knn
+    from repro_torch.kernels import ops, ref
+    tree = idx.dtree
+    rng = np.random.default_rng(0)
+    pts = idx.points
+    c = torch.from_numpy(pts[rng.integers(0, len(pts), args.batch)]
+                         .astype(np.float32)).to(dev)
+    r = torch.tensor(knn.default_radius(tree, 8), device=dev)
+    li, valid, _ = ref.traverse_compact(
+        torch.cat([c - r, c + r], 1), [lv.mbrs for lv in tree.levels],
+        [lv.parent for lv in tree.levels], args.max_visited)
+    c3 = torch.cat([c, (r * r).expand(len(c), 1)], 1)
+    li, valid = li.clone(), valid.clone()
+    valid[3, :4] = False                                   # padded slots
+    valid[4] = False                                       # empty row
+    leaf = int(li[1, 0])
+    e = tree.leaf_entries[leaf, 0]
+    dx, dy = e[0] - c3[1, 0], e[1] - c3[1, 1]
+    c3[1, 2] = dx * dx + dy * dy                           # d2 == r2
+    valid[1, 0] = True
+    n_pad = int((tree.leaf_counts < tree.leaf_entries.shape[1]).sum())
+    check(n_pad > 0, "no leaf with +inf padding")
+    launch, d2 = ops.prepare("knn_browse", c3, tree.leaf_entries, li, valid)
+    launch()
+    ex, ey = tree.leaf_entries[..., 0], tree.leaf_entries[..., 1]
+    want = ref.knn_browse(c3, ex, ey, li, valid)
+    mism = int((d2 != want).sum())   # +inf == +inf
+    check(mism == 0, f"knn_browse: {mism} mismatches (bit-exact)")
+    check(float(d2[1, 0, 0]) == float(c3[1, 2]),
+          "knn_browse: the entry at d2 == r2 was dropped")
+    check(bool(torch.isinf(d2[4]).all()), "knn_browse: empty row hit")
+    print(f"  knn_browse: bit-equal, the d2 == r2 entry kept, "
+          f"{int(torch.isfinite(d2).sum())} in-radius entries, "
+          f"{n_pad} of {tree.n_leaves} leaves padded")
+    B, K = li.shape
+    M = tree.leaf_entries.shape[1]
+    n_valid = int(valid.sum())
+    n_leaves = int(torch.unique(li[valid]).numel())
+    return kernel_row("knn_browse", 0, launch,
+                      lambda: ref.knn_browse(c3, ex, ey, li, valid),
+                      B * 12 + B * K * 5 + n_leaves * M * 8 + B * K * M * 4,
+                      n_valid * M * 6)
 
 
 def mlp_edge_rows(bank, L: int, k: int, dev) -> None:
@@ -315,19 +498,15 @@ def brute_force_check(idx, report, dev, n_sample: int, max_results: int):
     every point: n_results exactly, and the id set where it fits."""
     import numpy as np
     import torch
+    from repro_torch.launch import serve
     rng = np.random.default_rng(0)
     Q = idx.workload.n_queries
     sample = rng.choice(Q, min(n_sample, Q), replace=False)
-    pts = torch.from_numpy(idx.points.astype(np.float32)).to(dev)
     st = report.stats
     mism_n = mism_ids = 0
-    for o in range(0, sample.size, 64):
+    for o, inside in serve._inside_chunks(
+            idx.points, idx.workload.queries[sample], dev, chunk=64):
         s = sample[o:o + 64]
-        qq = torch.from_numpy(idx.workload.queries[s]).to(dev)
-        inside = ((pts[None, :, 0] >= qq[:, None, 0])
-                  & (pts[None, :, 0] <= qq[:, None, 2])
-                  & (pts[None, :, 1] >= qq[:, None, 1])
-                  & (pts[None, :, 1] <= qq[:, None, 3]))
         n = inside.sum(1).cpu().numpy()
         mism_n += int((n != st.n_results[s]).sum())
         for j, qi in enumerate(s):
@@ -341,22 +520,36 @@ def brute_force_check(idx, report, dev, n_sample: int, max_results: int):
     check(mism_n == 0 and mism_ids == 0, "brute-force containment mismatch")
 
 
-def profile_stream(idx, args, dev) -> None:
-    """One more full stream under ``torch.profiler`` (device activity
-    only): wall time, device busy share, and the device time by kernel,
-    the four ported kernels' share among it."""
+def schedule_cost(queries, batch: int, dev) -> None:
+    """Host-clock cost of batch formation alone (``make_schedule``:
+    curve keys on the card, copy back, stable argsort) per stream,
+    median of 20, for each sort mode."""
+    import torch
+    from repro_torch.core import schedule
+    ms = {}
+    for sort in ("hilbert", "morton", "none"):
+        times = []
+        for _ in range(22):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            schedule.make_schedule(queries, batch, sort, device=dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[sort] = statistics.median(times[2:])
+    print("# batch formation per stream (host clock, median of 20): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+
+
+def profile_stream(label: str, run) -> None:
+    """One more full stream (``run()``) under ``torch.profiler`` (device
+    activity only): wall time, device busy share, and the device time by
+    kernel, the port's CUDA kernels' share among it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import schedule
     from repro_torch.kernels import cuda as kcuda
-    from repro_torch.launch import serve
-    narrow, wide, trunc = serve.make_serve_fns(idx.hybrid, args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rep = schedule.serve_workload(
-            narrow, idx.workload.queries, batch=args.batch, sort=args.sort,
-            wide_fn=wide, trunc_field=trunc, device=dev)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
@@ -364,18 +557,16 @@ def profile_stream(idx, args, dev) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
     if not by_name:
-        print("# profile of one stream: the profiler recorded no device "
-              "activity (device busy share not measured)")
+        print(f"# profile of one {label} stream: the profiler recorded no "
+              "device activity (device busy share not measured)")
         return
     busy = sum(by_name.values())
     ours = sum(v for n, v in by_name.items()
                if any(f"{k}_kernel" in n for k in kcuda.KERNELS))
-    n_b = rep.n_batches + rep.wide_batches
-    print(f"# profile of one stream ({n_b} batches, CUPTI): wall "
-          f"{wall:.2f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%), "
-          f"the four CUDA kernels {ours:.3f} ms "
-          f"({100 * ours / max(busy, 1e-9):.1f}% of busy), "
+    print(f"# profile of one {label} stream (CUPTI): wall {wall:.2f} ms, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, idle "
+          f"{100 - 100 * busy / wall:.1f}%), the port's CUDA kernels "
+          f"{ours:.3f} ms ({100 * ours / max(busy, 1e-9):.1f}% of busy), "
           f"{len(cuda_events(prof))} device activities")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
@@ -392,6 +583,7 @@ def main(argv=None) -> int:
         print("chip_smoke.py must run from a checkout of the repository "
               f"(no src/repro_torch under {ROOT})", file=sys.stderr)
         return 2
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: the smoke runs only on the card",
@@ -420,12 +612,12 @@ def main(argv=None) -> int:
     if opts.points != POINTS:
         print(f"# CUT: {opts.points} points instead of the deployment's "
               f"{POINTS}")
-    args = serve.parse_args([
+    base_argv = [
         "--dataset", "crimes", "--points", str(opts.points),
-        "--queries", "4096", "--selectivity", "5e-5",
+        "--queries", str(QUERIES), "--selectivity", "5e-5",
         "--node-capacity", "128", "--batch", "512", "--max-visited", "64",
-        "--wide-factor", "8", "--classifier", "mlp", "--sort", "none",
-        "--reps", "3", "--device", "cuda"])
+        "--wide-factor", "8", "--classifier", "mlp", "--device", "cuda"]
+    args = serve.parse_args(base_argv + ["--sort", "hilbert", "--reps", "3"])
     t0 = time.time()
     idx = serve.build_index(args)
     print(f"# index built in {time.time()-t0:.1f}s")
@@ -433,30 +625,88 @@ def main(argv=None) -> int:
     print("# kernels vs plain versions on the card:")
     rows = kernel_checks(idx, args, dev)
 
+    # -- the range stream in Hilbert order (the reference's default)
     kcuda.reset_launch_counts()
     report, dt_s = serve.serve_stream(idx.hybrid, idx.workload, args)
     torch.cuda.synchronize()
-    counts = kcuda.launch_counts()
+    counts = {"range": kcuda.launch_counts()}
     mism = serve.report_stream(report, dt_s, idx)
-    n_streams = 1 + args.reps
-    print(f"# launches over {n_streams} streams "
+    print(f"# launches over {1 + args.reps} range streams "
           f"({report.n_batches} narrow + {report.wide_batches} wide "
-          f"batches each): {counts}")
-    for r in rows:
-        r["launches"] = counts[r["name"]]
-        check(r["launches"] > 0, f"{r['name']} never launched on the stream")
+          f"batches each): {counts['range']}")
+    for name in ("spatial_key", "traverse_fused", "leaf_refine",
+                 "mlp_predict_compact", "forest_infer"):
+        check(counts["range"][name] > 0,
+              f"{name} never launched on the range stream")
     check(mism == 0, f"oracle: {mism} n_results mismatches vs labels")
     brute_force_check(idx, report, dev, 512, 512)
-    profile_stream(idx, args, dev)
+    rates = {"range (hilbert)": f"{report.n_queries / dt_s:.0f} queries/s"}
+    schedule_cost(idx.workload.queries, args.batch, dev)
+
+    # -- the same stream in arrival order: a comparison, not gated
+    args_none = serve.parse_args(base_argv + ["--sort", "none",
+                                              "--reps", "3"])
+    rep_none, dt_none = serve.serve_stream(idx.hybrid, idx.workload,
+                                           args_none)
+    same = all(np.array_equal(getattr(report.stats, f),
+                              getattr(rep_none.stats, f))
+               for f in report.stats._fields)
+    print(f"# arrival order (comparison): {rep_none.n_queries / dt_none:.0f}"
+          f" queries/s against {report.n_queries / dt_s:.0f} in Hilbert "
+          f"order; per-query stats {'identical' if same else 'DIFFER'}")
+    rates["range (arrival order)"] = \
+        f"{rep_none.n_queries / dt_none:.0f} queries/s"
+    profile_stream("range (hilbert)",
+                   serve.range_stream(idx.hybrid, idx.workload, args))
+    profile_stream("range (arrival order)",
+                   serve.range_stream(idx.hybrid, idx.workload, args_none))
+
+    # -- kNN, join and point streams on the same index
+    for qt in ("knn", "join", "point"):
+        qargs = serve.parse_args(base_argv + [
+            "--sort", "hilbert", "--reps", "1", "--query-type", qt])
+        kcuda.reset_launch_counts()
+        if qt == "point":
+            out, mism = serve.serve_point(idx.hybrid, idx.points, qargs)
+        else:
+            fn = serve.serve_knn if qt == "knn" else serve.serve_join
+            out, mism = fn(idx.dtree, idx.points, qargs)
+        torch.cuda.synchronize()
+        counts[qt] = kcuda.launch_counts()
+        print(f"# launches over 2 {qt} streams: {counts[qt]}")
+        if qt == "point":
+            profile_stream(qt, serve.point_stream(idx.hybrid, idx.points,
+                                                  qargs)[-1])
+        else:
+            make = serve.knn_stream if qt == "knn" else serve.join_stream
+            profile_stream(qt, make(idx.dtree, idx.points, qargs)[-1])
+        check(mism == 0, f"{qt} oracle: {mism} mismatches")
+        need = {"knn": ("spatial_key", "traverse_compact", "knn_browse"),
+                "join": ("spatial_key", "traverse_compact", "leaf_refine"),
+                "point": ("spatial_key", "traverse_fused", "leaf_refine",
+                          "mlp_predict_compact", "forest_infer")}[qt]
+        for name in need:
+            check(counts[qt][name] > 0,
+                  f"{name} never launched on the {qt} stream")
+        if qt != "point":
+            check(counts[qt]["traverse_fused"] == 0,
+                  f"the {qt} stream built a dense [B, L] visited mask")
+        rates[qt] = ", ".join(f"{v:.0f} {k}" for k, v in out.items())
+
+    for r in rows:
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        check(r["launches"] > 0, f"{r['name']} never launched")
 
     st = report.stats
-    qps = report.n_queries / dt_s
     ai = 100 * float(st.used_ai.mean())
     acc = float(st.leaf_accesses.mean())
     print("kernels: " + ", ".join(kcuda.KERNELS) + " (CUDA C++, sm_90a)")
-    print(f"# serve on {card}: {qps:.0f} queries/s, {ai:.1f}% answered on "
-          f"the AI path, {acc:.2f} leaf accesses/query "
-          f"({opts.points} points, batch {args.batch})")
+    print(f"# serve on {card}: range {rates['range (hilbert)']} in Hilbert "
+          f"order ({ai:.1f}% answered on the AI path, {acc:.2f} leaf "
+          f"accesses/query; {rates['range (arrival order)']} in arrival "
+          f"order); knn {rates['knn']}; join {rates['join']}; point "
+          f"{rates['point']} ({opts.points} points, batch {args.batch})")
     print(f"# smoke finished in {time.time()-t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

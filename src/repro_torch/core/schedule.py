@@ -1,17 +1,17 @@
-"""Batch scheduler: fixed-size serving batches over one query stream.
+"""Spatial batch scheduler: Hilbert/Morton-ordered serving batches.
 
-Queries are cut into fixed-size batches (the ragged tail padded with its
-last query), served, and restored to submission order; rows whose
-truncation flag is set (R-path ``max_visited`` overflow — their
-``n_results`` undercounts) are collected across the whole stream and
-re-served on a wide-bound tier.
-
-This slice serves in arrival order (``sort="none"``). The Hilbert/Morton
-curve keys that sort batches spatially come with the ``spatial_key``
-kernel in the next slice of the port.
+Incoming queries are keyed on a space-filling curve
+(``kernels.ops.spatial_key``, on the stream's device), stably sorted, cut
+into fixed-size batches (the ragged tail padded with its last query),
+served, and restored to submission order. The serve step is per-query,
+so sorted serving returns the same rows as arrival order
+(``sort="none"``). Rows whose truncation flag is set (R-path
+``max_visited`` overflow — their ``n_results`` undercounts) are
+collected across the whole stream and re-served on a wide-bound tier.
 
 Everything here is host-side orchestration (numpy permutations around the
-serve step); the device-side work stays in the serve step itself.
+serve step) except the curve keys; the device-side work stays in the
+serve step itself.
 """
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ from typing import Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels import ops as kops
 
 
 SORT_MODES = ("none", "morton", "hilbert")
@@ -39,17 +42,38 @@ def workload_bbox(queries: np.ndarray) -> np.ndarray:
     return np.concatenate([lo, hi]).astype(np.float32)
 
 
+def point_query_mask(queries: np.ndarray) -> np.ndarray:
+    """[Q, 4] → [Q] bool: degenerate rects (zero extent on both axes), the
+    host twin of ``hybrid.is_point_query``."""
+    q = np.asarray(queries, np.float32)
+    return (q[:, 0] == q[:, 2]) & (q[:, 1] == q[:, 3])
+
+
 def spatial_keys(queries: np.ndarray, sort: str,
-                 bbox: Optional[np.ndarray] = None) -> np.ndarray:
-    """[Q, 4] → [Q] i32 curve keys (zeros for ``sort="none"``)."""
+                 bbox: Optional[np.ndarray] = None,
+                 device: str | torch.device = "cuda") -> np.ndarray:
+    """[Q, 4] → [Q] i32 curve keys (zeros for ``sort="none"``), computed
+    by ``ops.spatial_key`` on ``device`` and copied back.
+
+    A caller-supplied ``bbox`` gets the same degenerate-extent guard as
+    ``workload_bbox``: zero-extent axes are widened to a unit span.
+    """
     if sort not in SORT_MODES:
         raise ValueError(f"sort must be one of {SORT_MODES}, got {sort!r}")
-    if sort != "none":
-        raise NotImplementedError(
-            f"sort={sort!r} needs the spatial_key kernel, which comes with "
-            "the next slice of the port (spatial_key + the Hilbert/Morton "
-            "scheduler); use sort='none'")
-    return np.zeros((np.asarray(queries).shape[0],), np.int32)
+    q = np.asarray(queries, np.float32)
+    if sort == "none":
+        return np.zeros((q.shape[0],), np.int32)
+    if bbox is None:
+        bbox = workload_bbox(q)
+    else:
+        bbox = np.asarray(bbox, np.float32).copy()
+        flat = bbox[2:] - bbox[:2] <= 0
+        bbox[:2] = np.where(flat, bbox[:2] - 0.5, bbox[:2])
+        bbox[2:] = np.where(flat, bbox[2:] + 0.5, bbox[2:])
+    dev = resolve_device(device)
+    keys = kops.spatial_key(torch.from_numpy(q).to(dev),
+                            torch.from_numpy(bbox).to(dev), curve=sort)
+    return keys.cpu().numpy()
 
 
 class Schedule(NamedTuple):
@@ -62,15 +86,16 @@ class Schedule(NamedTuple):
     sort: str
 
 
-def make_schedule(queries: np.ndarray, batch: int, sort: str = "none",
-                  bbox: Optional[np.ndarray] = None) -> Schedule:
+def make_schedule(queries: np.ndarray, batch: int, sort: str = "hilbert",
+                  bbox: Optional[np.ndarray] = None,
+                  device: str | torch.device = "cuda") -> Schedule:
     """Key-sorted batch formation (stable, so scheduling is always a pure
     permutation). ``sort="none"`` keeps submission order."""
     q = np.asarray(queries, np.float32)
     n = q.shape[0]
     if n == 0 or batch <= 0:
         raise ValueError(f"need n_queries > 0 and batch > 0, got {n}/{batch}")
-    keys = spatial_keys(q, sort, bbox)
+    keys = spatial_keys(q, sort, bbox, device)
     order = np.argsort(keys, kind="stable").astype(np.int32)
     inv = np.empty_like(order)
     inv[order] = np.arange(n, dtype=np.int32)
@@ -140,7 +165,7 @@ class ServeReport(NamedTuple):
 
 
 def serve_workload(serve_fn: Callable, queries: np.ndarray, *, batch: int,
-                   sort: str = "none",
+                   sort: str = "hilbert",
                    bbox: Optional[np.ndarray] = None,
                    wide_fn: Optional[Callable] = None,
                    trunc_field: str = "truncated",
@@ -154,8 +179,8 @@ def serve_workload(serve_fn: Callable, queries: np.ndarray, *, batch: int,
     ``trunc_field`` is set are re-served through it and their rows
     replaced (see ``_merge_rows``).
     """
-    dev = torch.device(device)
-    sched = make_schedule(queries, batch, sort, bbox)
+    dev = resolve_device(device)
+    sched = make_schedule(queries, batch, sort, bbox, dev)
     outs = []
     for chunk, n_valid in iter_batches(queries, sched):
         stats = _to_host(serve_fn(torch.from_numpy(chunk).to(dev)))

@@ -3,9 +3,11 @@
 The frontier at each level is a ``[B, N_l]`` boolean mask; expansion to the
 next level is one gather (child → parent) plus one batched
 rectangle-intersection. On a CUDA device the whole root→leaf walk is one
-fused kernel (``kernels.ops.traverse_fused``); on the CPU its plain version
-runs the per-level loop below. Mask→index compaction is sort-free
-(prefix-count ranks + a rowwise binary search).
+fused kernel (``kernels.ops.traverse_fused``), and on the serving paths
+one kernel that also compacts the visited set into a slot table
+(``kernels.ops.traverse_compact``: the ``[B, L]`` mask never exists); on
+the CPU their plain versions run the per-level loop. Mask→index
+compaction is sort-free (prefix-count ranks + a rowwise binary search).
 
 Also implements the *refinement* step (exact point-in-rect filtering of the
 visited/predicted leaves) and the overlap ratio α = TN/VN (§III-A2).
@@ -87,6 +89,24 @@ def refine_leaves(tree: DeviceTree, queries: torch.Tensor,
                         valid=valid)
 
 
+class CompactVisit(NamedTuple):
+    leaf_idx: torch.Tensor    # [B, k] i32 — first k visited leaves, id order
+    valid: torch.Tensor       # [B, k] bool slot validity
+    n_visited: torch.Tensor   # [B] i32 total visited leaves (may exceed k)
+    overflow: torch.Tensor    # [B] bool — more than k leaves visited
+
+
+def visited_leaves_compact(tree: DeviceTree, queries: torch.Tensor, k: int
+                           ) -> CompactVisit:
+    """Classical visited set, compacted: the first ``k`` visited leaves
+    per row (``kernels.ops.traverse_compact``)."""
+    idx, valid, count = kops.traverse_compact(
+        queries, [lv.mbrs for lv in tree.levels],
+        [lv.parent for lv in tree.levels], k)
+    return CompactVisit(leaf_idx=idx, valid=valid, n_visited=count,
+                        overflow=count > k)
+
+
 class QueryResult(NamedTuple):
     visited: torch.Tensor        # [B, L] bool — classical visited set
     true_leaves: torch.Tensor    # [B, L] bool — leaves with qualifying points
@@ -157,6 +177,45 @@ def range_query(tree: DeviceTree, queries: torch.Tensor, *,
                             dtype=torch.int32),
         result_ids=result_ids,
         truncated=trunc_v | trunc_r,
+    )
+
+
+class CompactQueryResult(NamedTuple):
+    leaf_idx: torch.Tensor       # [B, max_visited] i32 compacted visited set
+    valid: torch.Tensor          # [B, max_visited] bool slot validity
+    n_visited: torch.Tensor      # [B] i32
+    n_true: torch.Tensor         # [B] i32
+    n_results: torch.Tensor      # [B] i32 total qualifying points
+    result_ids: torch.Tensor     # [B, max_results] i32, -1 padded
+    truncated: torch.Tensor      # [B] bool — static bounds overflowed
+
+
+def range_query_compact(tree: DeviceTree, queries: torch.Tensor, *,
+                        max_visited: int = 256, max_results: int = 512
+                        ) -> CompactQueryResult:
+    """Serving-path classical range query: traverse+compact → refine.
+
+    Per-field equal to ``range_query`` (``n_visited``/``n_true``/
+    ``n_results``/``result_ids``/``truncated`` and the compacted slots),
+    without the dense visited and true-leaf masks: use ``range_query``
+    where those are needed (labels, α).
+    """
+    queries = queries.to(torch.float32)
+    cv = visited_leaves_compact(tree, queries, max_visited)
+    ref = refine_leaves(tree, queries, cv.leaf_idx, cv.valid)
+    result_ids, trunc_r = gather_result_ids(tree, ref, max_results)
+    validi = cv.valid.to(torch.int32)
+    return CompactQueryResult(
+        leaf_idx=cv.leaf_idx,
+        valid=cv.valid,
+        n_visited=cv.n_visited,
+        # compacted slots hold distinct leaves, so the slot-level count is
+        # the leaf-level count — no [B, L] scatter needed
+        n_true=torch.sum((ref.counts > 0).to(torch.int32) * validi, dim=-1,
+                         dtype=torch.int32),
+        n_results=torch.sum(ref.counts * validi, dim=-1, dtype=torch.int32),
+        result_ids=result_ids,
+        truncated=cv.overflow | trunc_r,
     )
 
 

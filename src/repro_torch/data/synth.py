@@ -178,3 +178,21 @@ def synth_queries(points: np.ndarray, selectivity: float, n_queries: int,
         w = m[min(k - 1, m.size - 1)] * 1.0000001 + 1e-12
         out[i] = (c[0] - w, c[1] - ar * w, c[0] + w, c[1] + ar * w)
     return out.astype(np.float32)
+
+
+def strip_queries(leaf_mbrs: np.ndarray, counts) -> np.ndarray:
+    """Full-width horizontal strips that visit exactly ``c`` leaves for
+    each ``c`` in ``counts`` — edge rows for the compacting walk: every
+    ancestor MBR contains its leaves', so a strip from below the tree to
+    height Y visits exactly the leaves whose bottom edge is at most Y.
+    A count the leaves' bottom edges cannot give exactly (ties) raises."""
+    leaf = np.asarray(leaf_mbrs, np.float32)
+    lo = np.sort(leaf[:, 1])
+    x0, x1 = leaf[:, 0].min() - 1, leaf[:, 2].max() + 1
+    rows = []
+    for c in counts:
+        if c and c < len(lo) and lo[c] == lo[c - 1]:
+            raise ValueError(f"no strip visits exactly {c} leaves")
+        y = lo[c - 1] if c else lo[0] - 1
+        rows.append([x0, lo[0] - 2, x1, y])
+    return np.asarray(rows, np.float32)

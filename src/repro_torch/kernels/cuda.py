@@ -150,6 +150,18 @@ KERNELS = {
         "forest_infer", "forest_infer_launch",
         [_P, _P, _P, _I, _I, _I, _I, _P, _P],
         "src/repro/kernels/forest_infer.py:112"),
+    "spatial_key": Kernel(
+        "spatial_key", "spatial_key_launch",
+        [_P, _I, _I, _I, _P, _P],
+        "src/repro/kernels/spatial_key.py:93"),
+    "traverse_compact": Kernel(
+        "traverse_compact", "traverse_compact_launch",
+        [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, _P, _I, _I, _P, _P, _P],
+        "src/repro/kernels/traverse_fused.py:554"),
+    "knn_browse": Kernel(
+        "knn_browse", "knn_browse_launch",
+        [_P, _P, _I, _P, _P, _I, _I, _P, _P],
+        "src/repro/kernels/knn_browse.py:96"),
 }
 
 

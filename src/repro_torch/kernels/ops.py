@@ -1,4 +1,4 @@
-"""Dispatch for the serving path's kernels: the device decides.
+"""Dispatch for the serving paths' kernels: the device decides.
 
 Each wrapper takes its inputs in the reference's layout, does the small
 shape work the kernel needs, and then runs
@@ -27,9 +27,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import cuda as _cuda
 
 # Leaves per CTA along the leaf axis of the traversal kernel's grid, and
-# queries per CTA (kQT in csrc/traverse_fused.cu).
+# queries per CTA (kQT in csrc/traverse_fused.cu and in
+# csrc/traverse_compact.cu).
 TRAVERSE_LEAF_CHUNK = 2048
 TRAVERSE_QUERY_TILE = 8
+COMPACT_QUERY_TILE = 4
+CURVES = {"morton": 0, "hilbert": 1}
 # Shared memory one CTA may ask for on sm_90 (232,448 bytes, less room
 # for the kernels' static shared memory).
 MAX_DYNAMIC_SMEM = 227 * 1024 - 1024
@@ -71,18 +74,19 @@ def _launcher(name: str, device: torch.device, *args) -> Callable[[], None]:
 # preparation of each CUDA launch
 # ---------------------------------------------------------------------------
 
-def _prep_traverse_fused(queries, level_mbrs, level_parents):
-    B = queries.shape[0]
-    L = level_mbrs[-1].shape[0]
-    dev = queries.device
+def _walk_args(name, queries, level_mbrs, level_parents, smem):
+    """The traversal kernels' shared arguments: queries, the internal
+    levels packed root first with their host offsets, and the leaf level.
+    ``smem(width)`` is the kernel's shared memory for the widest internal
+    level; a tree that outgrows it raises."""
     sizes = [int(m.shape[0]) for m in level_mbrs[:-1]]
     width = max(sizes, default=1)
-    smem = 2 * TRAVERSE_QUERY_TILE * width
-    if smem > MAX_DYNAMIC_SMEM:
+    if smem(width) > MAX_DYNAMIC_SMEM:
         raise ValueError(
-            f"traverse_fused: an internal level of {width} nodes needs "
-            f"{smem} bytes of shared memory (> {MAX_DYNAMIC_SMEM}); trees "
-            "this large need the ancestor-sliced walk, not yet ported")
+            f"{name}: an internal level of {width} nodes over "
+            f"{int(level_mbrs[-1].shape[0])} leaves needs {smem(width)} "
+            f"bytes of shared memory (> {MAX_DYNAMIC_SMEM}); trees this "
+            "large need the ancestor-sliced walk, not yet ported")
     q = _c(queries, torch.float32)
     n_int = len(level_mbrs) - 1
     if n_int:
@@ -94,12 +98,34 @@ def _prep_traverse_fused(queries, level_mbrs, level_parents):
     for n in sizes:
         offs.append(offs[-1] + n)
     h_offs = (ctypes.c_int * len(offs))(*offs)
-    out = torch.empty((B, L), dtype=torch.bool, device=dev)
-    launch = _launcher(
-        "traverse_fused", dev, q, B, int_mbrs, int_par, h_offs, n_int,
-        _c(level_mbrs[-1], torch.float32), _c(level_parents[-1], torch.int32),
-        L, TRAVERSE_LEAF_CHUNK, out)
+    return (q, q.shape[0], int_mbrs, int_par, h_offs, n_int,
+            _c(level_mbrs[-1], torch.float32),
+            _c(level_parents[-1], torch.int32), level_mbrs[-1].shape[0])
+
+
+def _prep_traverse_fused(queries, level_mbrs, level_parents):
+    B, L = queries.shape[0], level_mbrs[-1].shape[0]
+    args = _walk_args("traverse_fused", queries, level_mbrs, level_parents,
+                      lambda width: 2 * TRAVERSE_QUERY_TILE * width)
+    out = torch.empty((B, L), dtype=torch.bool, device=queries.device)
+    launch = _launcher("traverse_fused", queries.device, *args,
+                       TRAVERSE_LEAF_CHUNK, out)
     return launch, out
+
+
+def _prep_traverse_compact(queries, level_mbrs, level_parents, k):
+    B, L = queries.shape[0], level_mbrs[-1].shape[0]
+    if k <= 0:
+        raise ValueError(f"traverse_compact needs k > 0, got {k}")
+    n_words = (L + 31) // 32
+    args = _walk_args(
+        "traverse_compact", queries, level_mbrs, level_parents,
+        lambda width: COMPACT_QUERY_TILE * (n_words * 4 + 2 * width))
+    idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)
+    cnt = torch.empty((B,), dtype=torch.int32, device=queries.device)
+    launch = _launcher("traverse_compact", queries.device, *args, k, idx,
+                       cnt)
+    return launch, (idx, cnt)
 
 
 def _prep_leaf_refine(queries, leaf_entries, safe_idx, valid):
@@ -147,10 +173,37 @@ def _prep_forest_infer(sel, thresh, tables):
     return launch, out
 
 
+def _prep_knn_browse(centers, leaf_entries, safe_idx, valid):
+    B, K = safe_idx.shape
+    M = leaf_entries.shape[1]
+    out = torch.empty((B, K, M), dtype=torch.float32, device=centers.device)
+    launch = _launcher(
+        "knn_browse", centers.device, _c(centers, torch.float32),
+        _c(leaf_entries, torch.float32), M, _c(safe_idx, torch.int32),
+        _c(valid, torch.bool), B, K, out)
+    return launch, out
+
+
+def _prep_spatial_key(cxy, curve, order=15):
+    if curve not in CURVES:
+        raise ValueError(f"curve must be one of {sorted(CURVES)}, got "
+                         f"{curve!r}")
+    if not 1 <= order <= 15:
+        raise ValueError(f"order must be in [1, 15], got {order}")
+    B = cxy.shape[0]
+    out = torch.empty((B,), dtype=torch.int32, device=cxy.device)
+    launch = _launcher("spatial_key", cxy.device, _c(cxy, torch.float32), B,
+                       CURVES[curve], order, out)
+    return launch, out
+
+
 _PREP = {"traverse_fused": _prep_traverse_fused,
+         "traverse_compact": _prep_traverse_compact,
          "leaf_refine": _prep_leaf_refine,
+         "knn_browse": _prep_knn_browse,
          "mlp_predict_compact": _prep_mlp_predict_compact,
-         "forest_infer": _prep_forest_infer}
+         "forest_infer": _prep_forest_infer,
+         "spatial_key": _prep_spatial_key}
 
 
 def prepare(name: str, *args):
@@ -181,6 +234,28 @@ def traverse_fused(queries: torch.Tensor,
     return out
 
 
+def traverse_compact(queries: torch.Tensor,
+                     level_mbrs: Sequence[torch.Tensor],
+                     level_parents: Sequence[torch.Tensor], k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused traversal + compaction: [B, 4] → ``(leaf_idx [B, k] i32,
+    valid [B, k] bool, count [B] i32)`` — the first ``k`` visited leaves
+    in id order (0 past the count) and each row's visited count.
+
+    Semantically ``compact_mask_counted(traverse_fused(...), k)``; on the
+    card the ``[B, L]`` visited mask never exists.
+    """
+    if not _on_cuda(queries, *level_mbrs, *level_parents):
+        return ref.traverse_compact(queries, level_mbrs, level_parents, k)
+    launch, (idx, cnt) = _prep_traverse_compact(queries, level_mbrs,
+                                                level_parents, k)
+    if cnt.numel():
+        launch()
+    valid = torch.arange(k, dtype=torch.int32, device=cnt.device)[None, :] \
+        < cnt[:, None]
+    return idx, valid, cnt
+
+
 def leaf_refine(queries: torch.Tensor, leaf_entries: torch.Tensor,
                 leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """queries [B,4], leaf_entries [L,M,2], leaf_idx [B,K], valid [B,K]
@@ -191,6 +266,53 @@ def leaf_refine(queries: torch.Tensor, leaf_entries: torch.Tensor,
         return ref.leaf_refine(queries, leaf_entries[..., 0],
                                leaf_entries[..., 1], safe_idx, valid)
     launch, out = _prep_leaf_refine(queries, leaf_entries, safe_idx, valid)
+    if out.numel():
+        launch()
+    return out
+
+
+def knn_browse(centers: torch.Tensor, leaf_entries: torch.Tensor,
+               leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """centers [B,3] (cx, cy, r²), leaf_entries [L,M,2], leaf_idx/valid
+    [B,K] → d2 [B, K, M] f32, +inf where masked. Slot ids are clamped
+    into [0, L) first (padded slots are masked by ``valid``)."""
+    safe_idx = torch.clamp(leaf_idx, 0, leaf_entries.shape[0] - 1)
+    if not _on_cuda(centers, leaf_entries, leaf_idx, valid):
+        return ref.knn_browse(centers, leaf_entries[..., 0],
+                              leaf_entries[..., 1], safe_idx, valid)
+    launch, out = _prep_knn_browse(centers, leaf_entries, safe_idx, valid)
+    if out.numel():
+        launch()
+    return out
+
+
+def spatial_key_inputs(queries: torch.Tensor,
+                       bbox: torch.Tensor | None = None) -> torch.Tensor:
+    """The key kernel's input: rect centres ``(q0+q2)*0.5`` normalized by
+    ``bbox`` ([4] xmin/ymin/xmax/ymax; the batch's own centre extent when
+    None) as ``(c - lo) / max(hi - lo, 1e-12)`` → [B, 2] f32."""
+    q = queries.to(torch.float32)
+    cx = (q[:, 0] + q[:, 2]) * 0.5
+    cy = (q[:, 1] + q[:, 3]) * 0.5
+    if bbox is None:
+        bbox = torch.stack([cx.min(), cy.min(), cx.max(), cy.max()])
+    bbox = torch.as_tensor(bbox, dtype=torch.float32, device=q.device)
+    span = torch.clamp(bbox[2:] - bbox[:2], min=1e-12)
+    return (torch.stack([cx, cy], dim=1) - bbox[None, :2]) / span[None, :]
+
+
+def spatial_key(queries: torch.Tensor, bbox: torch.Tensor | None = None,
+                curve: str = "hilbert", order: int = 15) -> torch.Tensor:
+    """Space-filling-curve keys of query rects: [B, 4] → [B] i32.
+
+    Centres are normalized by ``bbox`` (pass the workload's, so keys are
+    comparable across batches) and quantized to ``order`` bits;
+    ``curve`` is ``"hilbert"`` or ``"morton"``.
+    """
+    cxy = spatial_key_inputs(queries, bbox)
+    if not _on_cuda(cxy):
+        return ref.spatial_key(cxy, curve=curve, order=order)
+    launch, out = _prep_spatial_key(cxy, curve, order)
     if out.numel():
         launch()
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels on the serving path.
+"""Plain PyTorch versions of the CUDA kernels on the serving paths.
 
 Each function computes exactly what its kernel computes and is what
 ``kernels.ops`` runs for tensors on the CPU. The tests hold these against
@@ -34,6 +34,18 @@ def traverse_fused(queries: torch.Tensor, level_mbrs: Sequence[torch.Tensor],
     return mask
 
 
+def traverse_compact(queries: torch.Tensor,
+                     level_mbrs: Sequence[torch.Tensor],
+                     level_parents: Sequence[torch.Tensor], k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The walk, compacted: ``(leaf_idx [B, k] i32, valid [B, k] bool,
+    count [B] i32)`` — the first ``k`` visited leaves in id order and the
+    row's visited count (``compact_mask_counted`` of ``traverse_fused``)."""
+    from repro_torch.core.traversal import compact_mask_counted
+    return compact_mask_counted(
+        traverse_fused(queries, level_mbrs, level_parents), k)
+
+
 def leaf_refine(queries: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor,
                 leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """queries [B,4], ex/ey [L,M], leaf_idx [B,K], valid [B,K] → [B,K,M]
@@ -43,6 +55,62 @@ def leaf_refine(queries: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor,
     ok = geo.torch_contains_point(
         queries.to(torch.float32)[:, None, None, :], pts)   # [B, K, M]
     return ok & valid.to(torch.bool)[:, :, None]
+
+
+def knn_browse(centers: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor,
+               leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """centers [B,3] (cx, cy, r²), ex/ey [L,M], leaf_idx/valid [B,K] →
+    d2 [B,K,M] f32: squared distance from the centre to each entry of the
+    named leaves, +inf outside the radius, on invalid slots and on
+    (+inf) padding. ``dx*dx + dy*dy`` is three separately rounded ops,
+    as the CUDA kernel computes it."""
+    li = leaf_idx.long()
+    gx = ex[li].to(torch.float32)                        # [B, K, M]
+    gy = ey[li].to(torch.float32)
+    q = centers.to(torch.float32)
+    dx = gx - q[:, 0, None, None]
+    dy = gy - q[:, 1, None, None]
+    d2 = dx * dx + dy * dy
+    ok = (d2 <= q[:, 2, None, None]) & valid.to(torch.bool)[:, :, None]
+    return torch.where(ok, d2, torch.inf)
+
+
+def spatial_key(cxy: torch.Tensor, curve: str = "hilbert",
+                order: int = 15) -> torch.Tensor:
+    """Space-filling-curve keys: normalized centres [B, 2] f32 → [B] i32.
+
+    Each coordinate is quantized to ``order`` bits (``c * 2^order``
+    truncated, clipped to ``[0, 2^order)``), then the bits are
+    interleaved (``morton``, x high) or walked xy→d with quadrant
+    rotations as selects (``hilbert``). All int32: the largest Hilbert
+    term, 3·4^(order-1), fits. Clamping before the cast gives the same
+    integer for every finite input and keeps out-of-range casts defined.
+    """
+    if curve not in ("hilbert", "morton"):
+        raise ValueError(f"curve must be hilbert or morton, got {curve!r}")
+    n = 1 << order
+    q = torch.clamp(cxy.to(torch.float32) * float(n), 0.0,
+                    float(n - 1)).to(torch.int32)
+    x, y = q[:, 0], q[:, 1]
+    if curve == "morton":
+        key = torch.zeros_like(x)
+        for i in range(order):
+            key = key | (((x >> i) & 1) << (2 * i + 1)) \
+                | (((y >> i) & 1) << (2 * i))
+        return key
+    d = torch.zeros_like(x)
+    for i in range(order - 1, -1, -1):
+        s = 1 << i
+        rx = (x >> i) & 1
+        ry = (y >> i) & 1
+        d = d + s * s * ((3 * rx) ^ ry)
+        swap = ry == 0
+        flip = swap & (rx == 1)
+        fx = torch.where(flip, s - 1 - x, x)
+        fy = torch.where(flip, s - 1 - y, y)
+        x = torch.where(swap, fy, fx)
+        y = torch.where(swap, fx, fy)
+    return d
 
 
 def mlp_predict_scores(x: torch.Tensor, cell_ids: torch.Tensor,

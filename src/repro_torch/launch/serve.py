@@ -1,33 +1,39 @@
-"""Spatial serving driver: build an AI+R-tree and stream a full workload.
+"""Spatial serving driver: build an index and stream a full workload.
 
 ``python -m repro_torch.launch.serve --points 120000 --queries 4096 [...]``
 
 End-to-end, on one device: synthesize the dataset → dynamic (Guttman)
-R-tree build on the host → workload labelling on the R path → AI+R
-training (grid search + router) → closed-loop streaming of the *entire*
-query workload through the batch scheduler (``core.schedule``): every
-query is served exactly once through ``hybrid_query``, results are
-restored to submission order, and rows that overflowed the narrow R-path
-bound are re-served on the wide tier. Reports aggregate stats over the
-whole stream plus an oracle check that no query was dropped.
+R-tree build on the host → for range and point streams, workload
+labelling on the R path and AI+R training (grid search + router) →
+closed-loop streaming of the *entire* query workload through the spatial
+batch scheduler (``core.schedule``, ``--sort hilbert`` by default): every
+query is served exactly once, results are restored to submission order,
+and rows that overflowed the narrow bounds are re-served on the wide
+tier. Each stream closes with an oracle line.
 
-On ``--device cuda`` (the default) the serving path runs the four CUDA
-kernels (fused traversal, leaf refinement, fused MLP prediction, router
-forest); ``--device cpu`` runs their plain PyTorch versions. This port
-serves range queries, closed loop, with the MLP bank and arrival-order
-batches (``--sort none``).
+``--query-type`` picks the stream: ``range`` (``hybrid_query``),
+``point`` (degenerate rects through ``point_query``, exactness asserted),
+``knn`` (distance browsing with a radius-doubling wide tier) or ``join``
+(index-nested-loop spatial join with pair-slot tables). kNN and join
+need only the R-tree. On ``--device cuda`` (the default) every stream
+runs the CUDA kernels of its path; ``--device cpu`` runs their plain
+PyTorch versions. The MLP bank is the one classifier ported.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import build, device_tree as dt, labels, schedule
-from repro_torch.core.hybrid import HybridTree, hybrid_query
+from repro_torch.core import build, device_tree as dt, joins, labels
+from repro_torch.core import knn as knnlib, schedule
+from repro_torch.core.geometry import torch_contains_point
+from repro_torch.core.hybrid import HybridTree, hybrid_query, point_query
 from repro_torch.core.rtree import RTree
 from repro_torch.data import synth
 
@@ -44,16 +50,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch", type=int, default=512)
     p.add_argument("--reps", type=int, default=3,
                    help="timed repetitions of the full stream")
-    p.add_argument("--sort", default="none", choices=("none",),
-                   help="batch order (none = arrival order; the "
-                        "Hilbert/Morton curves come with the spatial_key "
-                        "kernel)")
+    p.add_argument("--sort", default="hilbert", choices=schedule.SORT_MODES,
+                   help="spatial batch scheduling curve (none = arrival "
+                        "order)")
     p.add_argument("--max-visited", type=int, default=64,
                    help="narrow-tier R-path bound (overflow re-serves wide)")
     p.add_argument("--wide-factor", type=int, default=8)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the CUDA kernels; cpu their plain "
                         "PyTorch versions")
+    p.add_argument("--query-type", default="range",
+                   choices=("range", "point", "knn", "join"),
+                   help="serving path: range rects (default), point "
+                        "lookups (degenerate rects, single-cell AI "
+                        "routing, exactness asserted), kNN (distance "
+                        "browsing with a radius-doubling wide tier), or "
+                        "spatial join (index-nested-loop, pair-slot "
+                        "tables)")
+    p.add_argument("--knn-k", type=int, default=8,
+                   help="neighbors per query for --query-type knn")
+    p.add_argument("--knn-margin", type=float, default=2.0,
+                   help="probe radius margin over the density estimate "
+                        "(larger = fewer wide-tier re-serves)")
+    p.add_argument("--join-pairs", type=int, default=16,
+                   help="narrow-tier pair-slot width for --query-type "
+                        "join")
     return p.parse_args(argv)
 
 
@@ -67,10 +88,10 @@ class Index:
     report: build.BuildReport
 
 
-def build_index(args: argparse.Namespace) -> Index:
-    """Dataset → Guttman R-tree → labels → ``fit_airtree`` (prints the
-    reference's ``# dataset`` / ``# R-tree`` / ``# workload`` / ``# AI+R``
-    lines)."""
+def build_tree(args: argparse.Namespace
+               ) -> tuple[np.ndarray, dt.DeviceTree]:
+    """Dataset → Guttman R-tree on the device (prints the reference's
+    ``# dataset`` / ``# R-tree`` lines)."""
     dev = resolve_device(args.device)
     gen = synth.tweets_like if args.dataset == "tweets" else synth.crimes_like
     pts = gen(args.points)
@@ -81,7 +102,13 @@ def build_index(args: argparse.Namespace) -> Index:
     dtree = dt.flatten(tree, device=dev)
     print(f"# R-tree: {dtree.n_leaves} leaves, height {dtree.height}, "
           f"built in {time.time()-t0:.1f}s")
+    return pts, dtree
 
+
+def build_index(args: argparse.Namespace) -> Index:
+    """``build_tree`` → labels → ``fit_airtree`` (prints the reference's
+    ``# workload`` / ``# AI+R`` lines too)."""
+    pts, dtree = build_tree(args)
     qs = synth.synth_queries(pts, args.selectivity, args.queries)
     wl = labels.make_workload(dtree, qs)
     print(f"# workload: mean α {wl.alpha.mean():.3f}, "
@@ -113,26 +140,45 @@ def make_serve_fns(hyb: HybridTree, args: argparse.Namespace):
     return narrow, wide, "truncated"
 
 
+def timed(run: Callable, reps: int):
+    """Warm up with one call of ``run`` (one full stream: both tiers),
+    then time ``reps`` calls, each ending on the host after every batch's
+    results are copied back. Returns the last result and seconds per
+    call."""
+    out = run()
+    t0 = time.time()
+    for _ in range(reps):
+        out = run()
+    return out, (time.time() - t0) / max(reps, 1)
+
+
+def _stream(narrow_fn: Callable, q: np.ndarray, args: argparse.Namespace,
+            *, wide_fn=None, trunc_field=None) -> Callable:
+    """A closure that serves the whole stream ``q`` once through the
+    scheduler (``--sort`` curve over the frame of ``q``'s centres)."""
+    bbox = schedule.workload_bbox(q)
+
+    def run() -> schedule.ServeReport:
+        return schedule.serve_workload(
+            narrow_fn, q, batch=args.batch, sort=args.sort, bbox=bbox,
+            wide_fn=wide_fn, trunc_field=trunc_field, device=args.device)
+    return run
+
+
+def range_stream(hyb: HybridTree, wl: labels.Workload,
+                 args: argparse.Namespace) -> Callable:
+    """The range stream: the workload through ``hybrid_query``, overflow
+    re-served wide."""
+    narrow_fn, wide_fn, trunc_field = make_serve_fns(hyb, args)
+    return _stream(narrow_fn, wl.queries, args, wide_fn=wide_fn,
+                   trunc_field=trunc_field)
+
+
 def serve_stream(hyb: HybridTree, wl: labels.Workload,
                  args: argparse.Namespace
                  ) -> tuple[schedule.ServeReport, float]:
-    """Warm both tiers with one full stream, then time ``--reps`` full
-    streams (each ends on the host, after every batch's results are
-    copied back). Returns the last report and seconds per stream."""
-    dev = resolve_device(args.device)
-    narrow_fn, wide_fn, trunc_field = make_serve_fns(hyb, args)
-
-    def stream():
-        return schedule.serve_workload(
-            narrow_fn, wl.queries, batch=args.batch, sort=args.sort,
-            bbox=schedule.workload_bbox(wl.queries), wide_fn=wide_fn,
-            trunc_field=trunc_field, device=dev)
-
-    report = stream()
-    t0 = time.time()
-    for _ in range(args.reps):
-        report = stream()
-    return report, (time.time() - t0) / max(args.reps, 1)
+    """The range stream, warmed and timed (``timed``)."""
+    return timed(range_stream(hyb, wl, args), args.reps)
 
 
 def report_stream(report: schedule.ServeReport, dt_s: float,
@@ -165,9 +211,192 @@ def report_stream(report: schedule.ServeReport, dt_s: float,
     return mism
 
 
+def _inside_chunks(points: np.ndarray, rects: np.ndarray, device,
+                   chunk: int = 256):
+    """Yield ``(offset, inside [n, P] bool)``: closed-rect f32
+    containment of every point, ``chunk`` rects at a time, on
+    ``device`` — the brute-force oracles' containment."""
+    dev = resolve_device(device)
+    p = torch.from_numpy(np.asarray(points, np.float32)).to(dev)
+    r = torch.from_numpy(np.asarray(rects, np.float32)).to(dev)
+    for o in range(0, r.shape[0], chunk):
+        yield o, torch_contains_point(r[o:o + chunk, None, :], p[None])
+
+
+def knn_stream(dtree: dt.DeviceTree, pts: np.ndarray,
+               args: argparse.Namespace
+               ) -> tuple[np.ndarray, float, Callable]:
+    """The kNN stream: ``(centres, radius, run)``, centres drawn from the
+    points, the probe radius from the density estimate, and a closure
+    serving the stream once with the radius-doubling wide tier."""
+    rng = np.random.default_rng(0)
+    centers = pts[rng.integers(0, pts.shape[0], args.queries)].astype(
+        np.float32)
+    r = knnlib.default_radius(dtree, args.knn_k, margin=args.knn_margin)
+    narrow, wide = knnlib.make_knn_steps(
+        dtree, k=args.knn_k, radius=r, max_visited=args.max_visited,
+        wide_factor=args.wide_factor)
+    return centers, r, _stream(
+        narrow, np.concatenate([centers, centers], axis=1), args,
+        wide_fn=wide, trunc_field="truncated")
+
+
+def serve_knn(dtree: dt.DeviceTree, pts: np.ndarray,
+              args: argparse.Namespace) -> tuple[dict, int]:
+    """kNN stream: distance browsing at a density-derived radius, with
+    the radius-doubling wide tier re-serving flagged rows; the port's
+    brute-force oracle checks a sample bit for bit. Returns the stream's
+    rate and the oracle's mismatch count."""
+    centers, r, run = knn_stream(dtree, pts, args)
+    report, dt_s = timed(run, args.reps)
+    st = report.stats
+    trunc = np.asarray(st.truncated)
+    acc = float(np.asarray(st.leaf_accesses).mean())
+    print(f"# knn stream: k={args.knn_k}, radius {r:.4g} "
+          f"(margin {args.knn_margin}), {report.n_queries} queries in "
+          f"{report.n_batches} batches (sort={report.sort}), "
+          f"{report.n_reserved} re-served at 2x radius, {int(trunc.sum())} "
+          f"still truncated (flagged, never approximate)")
+    kd = np.sqrt(np.asarray(st.neighbor_d2)[:, -1][~trunc].mean())
+    print(f"# serve: {report.n_queries/dt_s:.0f} queries/s, "
+          f"{acc:.2f} leaf accesses/query, mean k-distance {kd:.4g}")
+    # oracle: sampled rows vs all-pairs brute kNN on the stream's device —
+    # d2 bit for bit (both round dx*dx, dy*dy and their sum separately);
+    # truncated rows match on the in-radius prefix, and rows whose visited
+    # set overflowed even the wide slot table are flagged, not compared.
+    # Ids are compared on exact rows whose k + 1 nearest distances are
+    # distinct (a tie at the k-th leaves the id set open)
+    k = args.knn_k
+    m = min(256, centers.shape[0])
+    idx = np.random.default_rng(0).choice(centers.shape[0], m,
+                                          replace=False)
+    bd2, bids = knnlib.knn_brute(pts, centers[idx], k + 1,
+                                 device=args.device)
+    got = np.asarray(st.neighbor_d2)[idx]
+    got_ids = np.asarray(st.neighbor_ids)[idx]
+    nw = np.asarray(st.n_within)[idx]
+    over = (np.asarray(st.n_visited) > np.asarray(st.leaf_accesses))[idx]
+    mism = id_rows = id_mism = 0
+    for j in np.flatnonzero(~over):
+        exact = not trunc[idx[j]]
+        kk = k if exact else min(int(nw[j]), k)
+        mism += int(not np.array_equal(got[j, :kk], bd2[j, :kk]))
+        if exact and bool((np.diff(bd2[j]) > 0).all()):
+            id_rows += 1
+            id_mism += int(not np.array_equal(got_ids[j], bids[j, :k]))
+    print(f"# oracle: {mism} / {m - int(over.sum())} sampled rows mismatch "
+          f"brute-force k-distances (bit-exact; {int(over.sum())} "
+          f"overflowed rows flagged), {id_mism} / {id_rows} exact rows "
+          f"with distinct distances mismatch brute-force ids")
+    return {"queries/s": report.n_queries / dt_s}, mism + id_mism
+
+
+def join_stream(dtree: dt.DeviceTree, pts: np.ndarray,
+                args: argparse.Namespace) -> tuple[np.ndarray, Callable]:
+    """The join stream: ``(outer, run)``, the outer rects (the range
+    workload's generator) and a closure running the two-tier join once."""
+    outer = synth.synth_queries(pts, args.selectivity, args.queries)
+
+    def run() -> joins.JoinReport:
+        return joins.spatial_join(
+            dtree, outer, batch=args.batch, max_pairs=args.join_pairs,
+            max_visited=args.max_visited, sort=args.sort,
+            wide_factor=args.wide_factor, device=args.device)
+    return outer, run
+
+
+def serve_join(dtree: dt.DeviceTree, pts: np.ndarray,
+               args: argparse.Namespace) -> tuple[dict, int]:
+    """Spatial join stream: index-nested-loop over the compacting
+    traversal, pairs through the pair-slot tables; sampled outer rows'
+    pair sets are checked against brute-force containment on the
+    stream's device. Returns the stream's rates and the oracle's
+    mismatch count."""
+    outer, run = join_stream(dtree, pts, args)
+    rep, dt_s = timed(run, args.reps)
+    print(f"# join stream: {rep.n_outer} outer rects x {pts.shape[0]} "
+          f"points -> {rep.n_pairs} pairs "
+          f"({rep.n_pairs/max(rep.n_outer,1):.1f}/outer) in "
+          f"{rep.n_batches} batches (sort={rep.sort}), {rep.n_reserved} "
+          f"re-served wide, {rep.residual_truncated} still truncated")
+    print(f"# serve: {rep.n_outer/dt_s:.0f} outer rows/s, "
+          f"{rep.n_pairs/dt_s:.0f} pairs/s")
+    # oracle: sampled outer rows' pair sets vs dense containment; rows the
+    # wide tier still truncated are excluded (flagged above)
+    m = min(256, outer.shape[0])
+    idx = np.random.default_rng(0).choice(outer.shape[0], m, replace=False)
+    idx = idx[~np.asarray(rep.stats.truncated).astype(bool)[idx]]
+    got = {(int(o), int(pj)) for o, pj in
+           rep.pairs[np.isin(rep.pairs[:, 0], idx)]}
+    brute = set()
+    for o, inside in _inside_chunks(pts, outer[idx], args.device):
+        oi, pj = torch.nonzero(inside, as_tuple=True)
+        brute |= {(int(idx[o + a]), int(b))
+                  for a, b in zip(oi.tolist(), pj.tolist())}
+    mism = len(got ^ brute)
+    print(f"# oracle: {mism} pair mismatches vs brute-force containment "
+          f"over {idx.size} sampled outer rows")
+    return {"outer rows/s": rep.n_outer / dt_s,
+            "pairs/s": rep.n_pairs / dt_s}, mism
+
+
+def point_stream(hyb: HybridTree, base: np.ndarray,
+                 args: argparse.Namespace) -> tuple[np.ndarray, Callable]:
+    """The point stream: ``(q, run)``, degenerate rects at dataset points
+    and a closure serving them once through ``point_query`` (no wide
+    tier)."""
+    rng = np.random.default_rng(0)
+    ppts = base[rng.integers(0, base.shape[0], args.queries)].astype(
+        np.float32)
+    q = np.concatenate([ppts, ppts], axis=1)
+    return q, _stream(lambda qq: point_query(hyb, qq), q, args)
+
+
+def serve_point(hyb: HybridTree, base: np.ndarray,
+                args: argparse.Namespace) -> tuple[dict, int]:
+    """Point-query stream: degenerate rects at dataset points served
+    with single-cell AI routing and narrowed bounds — no wide tier, so
+    exactness is asserted (zero truncated rows) instead of re-served.
+    Returns the stream's rate and the oracle's mismatch count."""
+    q, run = point_stream(hyb, base, args)
+    report, dt_s = timed(run, args.reps)
+    st = report.stats
+    resid = int(np.asarray(st.truncated).sum())
+    acc = float(np.asarray(st.leaf_accesses).mean())
+    ai = float(np.asarray(st.used_ai).mean())
+    print(f"# point stream: {report.n_queries} degenerate-rect queries "
+          f"in {report.n_batches} batches (sort={report.sort}), "
+          f"single-cell AI routing, no wide tier")
+    print(f"# serve: {report.n_queries/dt_s:.0f} queries/s, "
+          f"{acc:.2f} leaf accesses/query, {100*ai:.1f}% AI path")
+    # the narrowed bounds must cover every row — a truncated point query
+    # would be silently wrong, so this is a hard failure, not a re-serve
+    if resid:
+        raise RuntimeError(f"{resid} truncated point queries")
+    # containment in f32: a degenerate rect contains only the points that
+    # are bit-equal to it at that precision
+    got = np.asarray(st.n_results)
+    mism = 0
+    for o, inside in _inside_chunks(base, q, args.device):
+        exp = inside.sum(dim=1).cpu().numpy()
+        mism += int(np.sum(exp != got[o:o + exp.shape[0]]))
+    print(f"# oracle: 0 truncated (exactness asserted); {mism} / "
+          f"{report.n_queries} n_results mismatches vs brute-force "
+          f"containment")
+    return {"queries/s": report.n_queries / dt_s}, mism
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
+    if args.query_type in ("knn", "join"):     # the R-tree is all they need
+        pts, dtree = build_tree(args)
+        serve = serve_knn if args.query_type == "knn" else serve_join
+        serve(dtree, pts, args)
+        return
     idx = build_index(args)
+    if args.query_type == "point":
+        serve_point(idx.hybrid, idx.points, args)
+        return
     report, dt_s = serve_stream(idx.hybrid, idx.workload, args)
     report_stream(report, dt_s, idx)
 

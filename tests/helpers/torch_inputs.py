@@ -69,3 +69,37 @@ def edge_bank(rng, L=200, k=6):
     lm[~lmask] = -1
     return dict(w1=w1, b1=b1, w2=w2, b2=b2, mu=np.zeros(F, np.float32),
                 sd=np.ones(F, np.float32), label_map=lm, lmask=lmask)
+
+
+def key_centres(rng, n=200, order=15):
+    """Normalized centres for the curve keys: random ones plus the edge
+    rows — the frame's corners (1.0 clips to 2^order - 1), points
+    outside it, exact quantization steps and the floats just below."""
+    c = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    steps = (np.array([1, 2, 3, 1000, 2 ** order - 1], np.float32)
+             / np.float32(2 ** order))
+    edge = [[0, 0], [1, 1], [0, 1], [1, 0], [-0.5, 1.5], [1.5, -0.25],
+            [-1e10, 1e10], [np.inf, -np.inf]]
+    edge += [[s, s] for s in steps]
+    edge += [[np.nextafter(s, np.float32(0)), s] for s in steps]
+    return np.concatenate([np.asarray(edge, np.float32), c])
+
+
+def knn_inputs(rng, L=50, M=16, B=24, K=8, fill=12):
+    """Browse inputs: leaves of ``fill`` entries (+inf padded to M),
+    centres with r², random slots with invalid and out-of-range ones, an
+    all-invalid row 3, and row 1's first entry exactly on its radius."""
+    ent = rng.uniform(0, 1, (L, M, 2)).astype(np.float32)
+    ent[:, fill:] = np.inf
+    c = rng.uniform(0, 1, (B, 2)).astype(np.float32)
+    r2 = rng.uniform(0.01, 0.2, (B, 1)).astype(np.float32)
+    idx = rng.integers(0, L, (B, K)).astype(np.int32)
+    valid = rng.uniform(size=(B, K)) < 0.75
+    idx[2, :3] = [-1, L, L + 7]
+    valid[2, :3] = False
+    valid[3] = False                                     # empty row
+    idx[1, 0], valid[1, 0] = 4, True
+    dx = ent[4, 0, 0] - c[1, 0]
+    dy = ent[4, 0, 1] - c[1, 1]
+    r2[1, 0] = np.float32(dx * dx) + np.float32(dy * dy)  # d2 == r2
+    return np.concatenate([c, r2], axis=1), ent, idx, valid

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Card-only (marker ``gpu``): every test takes the ``cuda`` fixture, which
 skips when no CUDA device is present, so on a CPU-only machine the file
@@ -17,11 +17,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.data.synth import strip_queries  # noqa: E402
 from repro_torch.kernels import cuda as kcuda, ops, ref  # noqa: E402
 # pytest puts tests/ on sys.path (it has no __init__.py); the card's
 # environment may carry another top-level ``tests`` package
 from helpers.torch_inputs import (  # noqa: E402
-    edge_bank, edge_queries, levels, rects)
+    edge_bank, edge_queries, key_centres, knn_inputs, levels, rects)
 
 pytestmark = pytest.mark.gpu
 
@@ -122,3 +123,50 @@ def test_mlp_predict_compact_kernel(cuda):
     assert torch.equal(idx[keep], pidx[keep])
     assert torch.equal(cnt[keep], pcnt[keep])
     assert cnt[:3].tolist() == [0, k, k + 1]
+
+
+@pytest.mark.parametrize("n_levels", [3, 1])
+@pytest.mark.parametrize("k", [64, 512])
+def test_traverse_compact_kernel(cuda, n_levels, k):
+    """Bit-equal to ``compact_mask_counted`` of the walk, with rows
+    visiting 0, exactly k and k + 1 leaves (all L on the single level)."""
+    rng = np.random.default_rng(4)
+    mbrs, parents = levels(rng, L=5000, n1=90)
+    if n_levels == 1:
+        mbrs, parents = mbrs[-1:], [np.zeros(len(mbrs[-1]), np.int32)]
+    q = np.concatenate([edge_queries(rng, mbrs[-1]),
+                        strip_queries(mbrs[-1], [0, k, k + 1, 5000])])
+    q, mb = _g(q, cuda), [_g(m, cuda) for m in mbrs]
+    pa = [_g(p, cuda) for p in parents]
+    got = _launched("traverse_compact",
+                    lambda: ops.traverse_compact(q, mb, pa, k))
+    want = ref.traverse_compact(q, mb, pa, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2][-4:].tolist() == [0, k, k + 1, 5000]
+
+
+@pytest.mark.parametrize("curve", ["hilbert", "morton"])
+def test_spatial_key_kernel(cuda, curve):
+    c = _g(key_centres(np.random.default_rng(5), n=5000), cuda)
+    launch, got = ops.prepare("spatial_key", c, curve)
+    _launched("spatial_key", launch)
+    assert torch.equal(got, ref.spatial_key(c, curve=curve))
+    q = _g(rects(np.random.default_rng(6), 700, -3, 3, 0.5), cuda)
+    flat = _g(np.array([0.5, 0.5, 0.5, 0.5], np.float32), cuda)
+    got = _launched("spatial_key", lambda: ops.spatial_key(q, flat, curve))
+    want = ref.spatial_key(ops.spatial_key_inputs(q, flat), curve=curve)
+    assert torch.equal(got, want)
+
+
+def test_knn_browse_kernel(cuda):
+    c3, ent, idx, valid = knn_inputs(np.random.default_rng(7), L=400,
+                                     M=128, B=96, K=64, fill=100)
+    args = [_g(a, cuda) for a in (c3, ent, idx, valid)]
+    got = _launched("knn_browse", lambda: ops.knn_browse(*args))
+    safe = torch.clamp(args[2], 0, 399)
+    want = ref.knn_browse(args[0], args[1][..., 0], args[1][..., 1], safe,
+                          args[3])
+    assert torch.equal(got, want)
+    assert float(got[1, 0, 0]) == float(args[0][1, 2])   # d2 == r2 kept
+    assert torch.isinf(got[3]).all() and torch.isinf(got[..., 100:]).all()

@@ -1,4 +1,4 @@
-"""Parity of the port's four serving kernels with the JAX package's.
+"""Parity of the port's serving kernels with the JAX package's.
 
 Inputs are made with numpy from a seed and go through the JAX kernel
 wrapper (``repro.kernels.ops``, Pallas in interpret mode here), the JAX
@@ -8,7 +8,9 @@ PyTorch version that the CUDA kernels are held against on the card.
 Integer and bool outputs must be bit-equal; the forest's float votes
 too (both sum trees in ascending order). MLP scores agree within 1e-5;
 a predicted-leaf row whose score lies within 1e-5 of the threshold is
-reported, not failed.
+reported, not failed. kNN distances are bit-equal to the JAX reference
+evaluated op by op, and within 1 ulp of the jitted Pallas kernel, where
+XLA:CPU may contract ``dx*dx + dy*dy`` into an FMA.
 """
 import numpy as np
 import pytest
@@ -18,11 +20,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
+from repro.kernels import spatial_key as jskey  # noqa: E402
+from repro_torch.data.synth import strip_queries  # noqa: E402
 from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
 # pytest puts tests/ on sys.path (it has no __init__.py); the card's
 # environment may carry another top-level ``tests`` package
 from helpers.torch_inputs import (  # noqa: E402
-    edge_bank, edge_queries, levels, rects)
+    edge_bank, edge_queries, key_centres, knn_inputs, levels, rects)
 
 NEAR = 1e-5
 
@@ -158,3 +162,89 @@ def test_mlp_predict_compact_matches_jax():
     assert count[0] == 0 and count[1] == k and count[2] == k + 1
     assert count[3] == k and count[4] == 0
     np.testing.assert_array_equal(got[0][2], np.arange(10, 10 + k))
+
+
+@pytest.mark.parametrize("n_levels", [3, 1])
+def test_traverse_compact_matches_jax(n_levels):
+    """Slot table, validity and visited count, bit-equal to the JAX
+    kernel (interpret mode) and to ``compact_mask_counted`` of the walk,
+    with rows visiting 0, exactly k and k + 1 leaves, and k past L."""
+    rng = np.random.default_rng(4)
+    mbrs, parents = levels(rng)
+    if n_levels == 1:
+        mbrs, parents = mbrs[-1:], [np.zeros(len(mbrs[-1]), np.int32)]
+    L = len(mbrs[-1])
+    for k in (6, 40, L + 3):
+        q = np.concatenate([edge_queries(rng, mbrs[-1]),
+                            strip_queries(mbrs[-1], [0, k, k + 1]
+                                          if k < L else [0, L])])
+        jargs = (jnp.asarray(q), [jnp.asarray(m) for m in mbrs],
+                 [jnp.asarray(p) for p in parents], k)
+        want = [np.asarray(a) for a in jops.traverse_compact(*jargs)]
+        got = [a.numpy() for a in tops.traverse_compact(
+            _t(q), [_t(m) for m in mbrs], [_t(p) for p in parents], k)]
+        for name, g, w in zip(("leaf_idx", "valid", "count"), got, want):
+            np.testing.assert_array_equal(g, w, err_msg=f"{name}, k={k}")
+        n = len(q)
+        if k < L:
+            np.testing.assert_array_equal(got[2][n - 3:], [0, k, k + 1])
+        else:
+            np.testing.assert_array_equal(got[2][n - 2:], [0, L])
+        assert got[2][0] == 0 and (got[0][~got[1]] == 0).all()
+
+
+@pytest.mark.parametrize("curve", ["hilbert", "morton"])
+def test_spatial_key_matches_jax(curve):
+    """Keys of normalized centres, bit-equal to the JAX kernel
+    (interpret mode) and reference, with the edge rows: corners (1.0
+    clips to 32767), outside the frame, exact quantization steps."""
+    c = key_centres(np.random.default_rng(5))
+    got = tref.spatial_key(_t(c), curve=curve).numpy()
+    fin = np.isfinite(c).all(axis=1) & (np.abs(c) < 4).all(axis=1)
+    n = int(fin.sum())
+    cp = np.pad(c[fin], ((0, -n % 128), (0, 0)))    # the kernel's tiling
+    want_k = np.asarray(jskey.spatial_key_t(jnp.asarray(cp.T), curve=curve,
+                                            tb=128, interpret=True))[0, :n]
+    want_r = np.asarray(jref.spatial_key(jnp.asarray(c[fin]), curve=curve))
+    np.testing.assert_array_equal(want_k, want_r)
+    np.testing.assert_array_equal(got[fin], want_r)
+    # values whose f32→i32 cast overflows: the clip's ends
+    far = tref.spatial_key(_t(np.clip(c[~fin], -2, 2)), curve=curve)
+    np.testing.assert_array_equal(got[~fin], far.numpy())
+    assert got[1] == got[12]        # (1, 1) clips to (32767, 32767)
+
+
+@pytest.mark.parametrize("curve", ["hilbert", "morton"])
+def test_spatial_key_wrapper_matches_jax(curve):
+    """Centre normalization + keys through both wrappers, with the
+    batch's own frame, a caller frame and a zero-extent frame."""
+    q = rects(np.random.default_rng(6), 300, -3, 3, 0.5)
+    for bbox in (None, np.array([-1, -2, 1, 2], np.float32),
+                 np.array([0.5, 0.5, 0.5, 0.5], np.float32)):
+        jb = None if bbox is None else jnp.asarray(bbox)
+        tb = None if bbox is None else _t(bbox)
+        want = np.asarray(jops.spatial_key(jnp.asarray(q), bbox=jb,
+                                           curve=curve))
+        got = tops.spatial_key(_t(q), tb, curve=curve).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_knn_browse_matches_jax():
+    """Distances over named leaves: +inf padding, invalid and clamped
+    out-of-range slots, an all-invalid row, an entry exactly at r²."""
+    c3, ent, idx, valid = knn_inputs(np.random.default_rng(7))
+    got = tops.knn_browse(_t(c3), _t(ent), _t(idx), _t(valid)).numpy()
+    safe = np.clip(idx, 0, len(ent) - 1)
+    want_r = np.asarray(jref.knn_browse(
+        jnp.asarray(c3), jnp.asarray(ent[..., 0]), jnp.asarray(ent[..., 1]),
+        jnp.asarray(safe), jnp.asarray(valid)))     # eager: no contraction
+    np.testing.assert_array_equal(got, want_r)
+    want_k = np.asarray(jops.knn_browse(jnp.asarray(c3), jnp.asarray(ent),
+                                        jnp.asarray(idx), jnp.asarray(valid)))
+    fin = np.isfinite(got) & np.isfinite(want_k)
+    np.testing.assert_array_max_ulp(got[fin], want_k[fin], maxulp=1)
+    differ = np.isfinite(got) != np.isfinite(want_k)
+    assert not differ[:, :, 1:].any() and not differ[[0] + list(
+        range(2, len(got)))].any(), "only the on-radius entry may flip"
+    assert got[1, 0, 0] == c3[1, 2] and np.isinf(got[3]).all()
+    assert np.isinf(got[:, :, 12:]).all() and np.isfinite(got).any()

@@ -231,9 +231,46 @@ def test_serve_workload_wide_tier_matches_reference(world):
     np.testing.assert_array_equal(got.stats.n_results, wl.n_results)
 
 
-def test_schedule_sorted_modes_wait_for_next_slice():
-    with pytest.raises(NotImplementedError, match="spatial_key"):
-        schedule.make_schedule(np.zeros((4, 4), np.float32), 2, "hilbert")
+@pytest.mark.parametrize("sort", ["hilbert", "morton"])
+def test_sorted_serving_equals_arrival_order(world, sort):
+    """The two-tier stream in curve order: the same stats, in submission
+    order, as arrival order and as the reference's sorted stream."""
+    _, jh, th, wl, _ = world
+    mv, mr, wf = 2, 16, 8
+
+    def serve(s):
+        return schedule.serve_workload(
+            lambda x: hybrid_query(th, x, max_visited=mv, max_results=mr),
+            wl.queries, batch=64, sort=s,
+            wide_fn=lambda x: hybrid_query(th, x, max_visited=mv * wf,
+                                           max_results=mr * wf),
+            trunc_field="truncated", device=CPU)
+
+    got, base = serve(sort), serve("none")
+    assert got.sort == sort and got.n_reserved == base.n_reserved > 0
+    _assert_fields_equal(got.stats, base.stats)
+    jn = jax.jit(lambda x: j_hybrid(jh, x, max_visited=mv, max_results=mr))
+    jw = jax.jit(lambda x: j_hybrid(jh, x, max_visited=mv * wf,
+                                    max_results=mr * wf))
+    want = jschedule.serve_workload(jn, wl.queries, batch=64, sort=sort,
+                                    wide_fn=jw, trunc_field="truncated")
+    assert got.wide_batches == want.wide_batches
+    _assert_fields_equal(got.stats, want.stats,
+                         skip_rows=_near_threshold_rows(jh, wl.queries))
+
+
+def test_schedule_sorted_modes_match_reference(world):
+    """Hilbert and Morton permutations equal the reference's, on the
+    workload's own frame and on a caller frame; unknown modes raise."""
+    _, _, _, wl, _ = world
+    bbox = np.array([0, 0, 500, 800], np.float32)
+    for sort in ("hilbert", "morton"):
+        for b in (None, bbox):
+            got = schedule.make_schedule(wl.queries, 32, sort, b, device=CPU)
+            want = jschedule.make_schedule(wl.queries, 32, sort, b)
+            np.testing.assert_array_equal(got.order, want.order)
+            np.testing.assert_array_equal(got.inv, want.inv)
+            assert (got.order != np.arange(wl.n_queries)).any()
     with pytest.raises(ValueError):
         schedule.make_schedule(np.zeros((4, 4), np.float32), 2, "zorder")
 
