@@ -9,7 +9,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each failing the run (non-zero exit) on its own error:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. build the serving index through ``repro_torch.launch.serve`` at the
    Chicago Crimes scale of the paper (872K points, node capacity 128,
@@ -25,7 +25,20 @@ Phases, each failing the run (non-zero exit) on its own error:
 6. on the same index, serve a kNN, a spatial-join and a point stream
    (4096 queries each, one timed repetition), each with its launch
    counts reset and read around it and its oracle at 0 mismatches;
-7. print the ``kernels:`` line, the serving rates beside the card, the
+7. serve the mixed read/write stream (``--insert-rate``'s path): the
+   range workload in Hilbert order, batch 512, one batch per segment,
+   with 8,192 new records of the same synthetic city
+   (``crimes_like(8192, seed=1)``, shuffled) staged between segments
+   into a ``FreshServer`` (delta capacity 8,192, delta slots 64 narrow
+   and 512 wide) under ``DefaultPolicy(refit_chunk=4, repack_at=0.75)``
+   with the build's ``FitState``; gates: probe launches equal to the
+   batches served, every insert staged, at least one repack, one refit
+   chunk and one delta hit, 0 ``n_results`` mismatches against
+   brute-force containment of each segment's visible points and 0
+   id-set mismatches on 512 sampled rows; then the wall split (serving,
+   repack, refit) and a profile of one ``FreshServer.serve`` pass over
+   the 4096 queries at a delta fill of 6,144;
+8. print the ``kernels:`` line, the serving rates beside the card, the
    per-kernel JSON line, and the contract's last line.
 
 It imports neither JAX nor the JAX package, and refuses to run without a
@@ -52,6 +65,8 @@ F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
 NEAR = 1e-5                      # MLP scores this close to the threshold
 #                                  may flip between kernel and plain
 TIMING_REPS = 30
+INSERTS = 8192                   # the mixed stream's new records
+DELTA_CAP = 8192                 # repro.launch.serve's --delta-cap
 
 
 class SmokeFailure(RuntimeError):
@@ -103,21 +118,24 @@ def device_ms(fn, match: str | None = None,
     """Device time per call of ``fn()``: the summed CUPTI durations
     (``torch.profiler``) of the device work it issues — only kernels
     whose name contains ``match`` when given — over ``reps`` calls.
-    Falls back to ``event_ms`` when the profiler records no device
-    activity; the second value names the source."""
+    A profile that recorded no matching activity is taken once more;
+    after two empty ones it falls back to ``event_ms``. The second value
+    names the source."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = cuda_events(prof, match)
-    if not ev:
-        return event_ms(fn, reps), "cuda-events"
-    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, "cupti"
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = cuda_events(prof, match)
+        if ev:
+            return (sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3,
+                    "cupti")
+    return event_ms(fn, reps), "cuda-events"
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -147,7 +165,7 @@ def kernel_row(name, mism, launch, plain, n_bytes, n_ops,
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
-def kernel_checks(idx, args, dev) -> list:
+def kernel_checks(idx, args, dev, inserts) -> list:
     """Phase 4: each kernel against its plain version at the serving
     path's shapes (one narrow batch), with edge rows; returns the JSON
     rows (launch counts filled in later)."""
@@ -270,6 +288,7 @@ def kernel_checks(idx, args, dev) -> list:
     rows.append(spatial_key_check(idx, dev))
     rows.append(traverse_compact_check(idx, q, dev))
     rows.append(knn_browse_check(idx, args, dev))
+    rows.append(delta_probe_check(idx, args, dev, inserts))
     return rows
 
 
@@ -438,6 +457,87 @@ def knn_browse_check(idx, args, dev) -> dict:
                       n_valid * M * 6)
 
 
+def make_inserts():
+    """The mixed stream's inserts: ``INSERTS`` new records of the same
+    synthetic city (the generator draws its hot blocks before anything
+    that depends on n), shuffled so they arrive in no spatial order."""
+    import numpy as np
+    from repro_torch.data import synth
+    ins = synth.crimes_like(INSERTS, seed=1)
+    return ins[np.random.default_rng(0).permutation(ins.shape[0])]
+
+
+def delta_probe_case(q, buf, k, dev, edge: bool) -> list:
+    """One delta_probe check: kernel against plain version, bit-equal on
+    slot table, validity and count. With ``edge`` the first k + 1 buffer
+    points move onto the line y = 0 at x = 100 + i/1024 (exact in f32,
+    outside the city) and rows 1-3 get rects whose edges pass through
+    them (k, k + 1 and, from a corner, k - 1 hits). Returns the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    q, buf = q.copy(), buf.copy()
+    q[0] = [1e9, 1e9, 1e9 + 1, 1e9 + 1]                     # empty row
+    if edge:
+        step = np.float32(1 / 1024)
+        buf[:k + 1, 0] = 100 + np.arange(k + 1, dtype=np.float32) * step
+        buf[:k + 1, 1] = 0
+        q[1] = [100, 0, 100 + (k - 1) * step, 0]
+        q[2] = [100, 0, 100 + k * step, 0]
+        q[3] = [100 + 2 * step, 0, 101, 1]
+    qt, bt = torch.from_numpy(q).to(dev), torch.from_numpy(buf).to(dev)
+    launch, (kidx, kcnt) = ops.prepare("delta_probe", qt, bt, k)
+    launch()
+    pidx, pvalid, pcnt = ref.delta_probe(qt, bt, k)
+    kvalid = torch.arange(k, device=dev)[None, :] < kcnt[:, None]
+    mism = int((kidx != pidx).sum() + (kcnt != pcnt).sum()
+               + (kvalid != pvalid).sum())
+    check(mism == 0, f"delta_probe (cap {len(buf)}, k {k}): {mism} "
+          "mismatches")
+    counts = kcnt.tolist()
+    check(counts[0] == 0, "delta_probe: the empty row hit")
+    if edge:
+        check(counts[1:4] == [k, k + 1, k - 1],
+              f"delta_probe edge rows count {counts[1:4]}")
+    return counts
+
+
+def delta_probe_check(idx, args, dev, inserts) -> dict:
+    """delta_probe on one narrow batch of the range workload against the
+    mixed stream's buffer (cap 8192) filled to 0, 1,170, 6,144 and 8,192
+    inserts, at k 64 (narrow) and 512 (wide), with edge rows; then a cap
+    that is not a multiple of the block and a one-point store. Bit-equal.
+    Timed at fill 6,144, k 64."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    B, cap = args.batch, DELTA_CAP
+    q = idx.workload.queries[:B].astype(np.float32)
+    for fill in (0, 1170, 6144, 8192):
+        buf = np.full((cap, 2), np.inf, np.float32)
+        buf[:fill] = inserts[:fill]
+        for k in (64, 512):
+            delta_probe_case(q, buf, k, dev, edge=fill > k)
+    odd = np.full((777, 2), np.inf, np.float32)
+    odd[:600] = inserts[:600]
+    delta_probe_case(q[:37], odd, 8, dev, edge=True)
+    one = inserts[:1].astype(np.float32)
+    got = delta_probe_case(np.concatenate([q[:4], [np.r_[one[0], one[0]]]])
+                           .astype(np.float32), one, 4, dev, edge=False)
+    check(got[-1] == 1, "delta_probe: a one-point store missed its point")
+    print(f"  delta_probe: bit-equal at cap {cap} (fills 0, 1170, 6144, "
+          f"8192; k 64 and 512; edge rows with k, k + 1 and k - 1 hits), "
+          f"at cap 777 and on a one-point store")
+    fill, k = 6144, 64
+    buf = np.full((cap, 2), np.inf, np.float32)
+    buf[:fill] = inserts[:fill]
+    qt, bt = torch.from_numpy(q).to(dev), torch.from_numpy(buf).to(dev)
+    launch, _ = ops.prepare("delta_probe", qt, bt, k)
+    return kernel_row("delta_probe", 0, launch,
+                      lambda: ref.delta_probe(qt, bt, k),
+                      B * 16 + cap * 8 + B * (k + 1) * 4, B * fill * 4)
+
+
 def mlp_edge_rows(bank, L: int, k: int, dev) -> None:
     """The fused prediction kernel on the edge rows, with a bank of the
     deployed bank's F, H and Cl whose cells are pinned by their biases
@@ -539,17 +639,19 @@ def schedule_cost(queries, batch: int, dev) -> None:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
 
 
-def profile_stream(label: str, run) -> None:
+def profile_stream(label: str, run):
     """One more full stream (``run()``) under ``torch.profiler`` (device
     activity only): wall time, device busy share, and the device time by
-    kernel, the port's CUDA kernels' share among it."""
+    kernel, the port's CUDA kernels' share among it. Returns ``(run()'s
+    result, busy ms, {kernel name: ms})``, busy None without device
+    activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import cuda as kcuda
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
@@ -559,7 +661,7 @@ def profile_stream(label: str, run) -> None:
     if not by_name:
         print(f"# profile of one {label} stream: the profiler recorded no "
               "device activity (device busy share not measured)")
-        return
+        return out, None, by_name
     busy = sum(by_name.values())
     ours = sum(v for n, v in by_name.items()
                if any(f"{k}_kernel" in n for k in kcuda.KERNELS))
@@ -571,6 +673,129 @@ def profile_stream(label: str, run) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         print(f"    {ms:8.3f} ms  {name[:100]}")
+    return out, busy, by_name
+
+
+def mixed_stream(idx, base_argv, inserts, dev):
+    """Phase 7: the mixed read/write stream through ``serve.serve_mixed``
+    with the maintenance policy, its gates, the wall split and the
+    profile of one serve pass at fill 6,144. Returns ``(launch counts,
+    rate)``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import delta, schedule
+    from repro_torch.core.hybrid import hybrid_query
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import serve
+    margs = serve.parse_args(base_argv + [
+        "--sort", "hilbert", "--reps", "1", "--insert-every", "1",
+        "--delta-cap", str(DELTA_CAP), "--policy", "default",
+        "--refit-chunk", "4", "--repack-at", "0.75"])
+    server = serve.make_fresh_server(idx, margs)
+    calls = {"serve": 0, "serve_wide": 0}
+    secs = {"repack": 0.0, "refit_cells": 0.0}
+
+    def counted(name):
+        fn = getattr(server, name)
+
+        def call(q):
+            calls[name] += 1
+            return fn(q)
+        setattr(server, name, call)
+
+    def clocked(name):
+        fn = getattr(server, name)
+
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+            return out
+        setattr(server, name, call)
+    for name in calls:
+        counted(name)
+    for name in secs:
+        clocked(name)
+
+    kcuda.reset_launch_counts()
+    mixed, server, dt_s, mism = serve.serve_mixed(idx, inserts, margs,
+                                                  server=server)
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    print(f"# launches over the mixed stream ({calls['serve']} narrow + "
+          f"{calls['serve_wide']} wide batches): {counts}")
+    n_probe = calls["serve"] + calls["serve_wide"]
+    check(counts["delta_probe"] == n_probe,
+          f"delta_probe launched {counts['delta_probe']} times for "
+          f"{n_probe} served batches")
+    check(calls["serve"] == mixed.n_batches, "narrow batch count differs")
+    for name in ("spatial_key", "traverse_fused", "leaf_refine",
+                 "mlp_predict_compact", "forest_infer"):
+        check(counts[name] > 0, f"{name} never launched on the mixed stream")
+    n_repacks = mixed.n_repacks + sum(d.repack for _, d in mixed.maintenance)
+    n_refit = sum(r.cells_refit for r in server.refits)
+    hits = int(mixed.stats.delta_hits.sum())
+    check(mixed.n_inserts == INSERTS, f"{mixed.n_inserts} inserts staged")
+    check(n_repacks >= 1, "the mixed stream never repacked")
+    check(n_refit > 0, "the mixed stream refit no cell")
+    check(hits > 0, "no query hit the delta buffer")
+    check(mism == 0, f"mixed oracle: {mism} n_results mismatches")
+    trunc = mixed.stats.truncated.astype(bool)
+    rows = np.random.default_rng(0).choice(np.flatnonzero(~trunc),
+                                           min(512, int((~trunc).sum())),
+                                           replace=False)
+    _, id_mism, n_rows = serve.mixed_oracle(
+        mixed, idx.points, idx.workload.queries, dev, id_rows=rows)
+    print(f"# mixed oracle: {mism} / {mixed.n_queries} n_results and "
+          f"{id_mism} / {n_rows} sampled id-set mismatches vs f32 "
+          f"brute force over each segment's visible points; {n_repacks} "
+          f"repacks, {n_refit} cells refit in {len(server.refits)} "
+          f"refit_cells calls, {hits} delta hits")
+    check(id_mism == 0, f"mixed oracle: {id_mism} id-set mismatches")
+    check(n_rows >= 500, f"only {n_rows} rows compared by id set")
+    serving = dt_s - secs["repack"] - secs["refit_cells"]
+    print(f"# mixed wall {dt_s:.3f} s: serving {serving:.3f} s, repack "
+          f"{secs['repack']:.3f} s (incl. the span diff), refit chunks "
+          f"{secs['refit_cells']:.3f} s; {mixed.n_queries / dt_s:.0f} "
+          f"queries/s end to end, {mixed.n_queries / serving:.0f} "
+          f"queries/s serving alone")
+
+    # one FreshServer.serve pass over the stream at fill 6,144
+    nargs = serve.parse_args(base_argv + ["--delta-cap", str(DELTA_CAP)])
+    pserver = serve.make_fresh_server(idx, nargs)
+    pserver.insert(inserts[:6144])
+    q = idx.workload.queries
+    bbox = schedule.workload_bbox(q)
+
+    def run():
+        return schedule.serve_workload(
+            pserver.serve, q, batch=margs.batch, sort="hilbert", bbox=bbox,
+            wide_fn=pserver.serve_wide, device=dev)
+    run()
+    rep, busy, by_name = profile_stream("FreshServer.serve (fill 6144)",
+                                        run)
+    if busy:
+        probe = sum(v for n, v in by_name.items() if "delta_probe" in n)
+        ms = {}
+        for tier, widen in (("narrow", 1), ("wide", margs.wide_factor)):
+            qb = torch.from_numpy(q[:margs.batch]).to(dev)
+            res = hybrid_query(pserver.hybrid, qb,
+                               max_visited=margs.max_visited * widen,
+                               max_results=512 * widen)
+            hit = delta.probe(pserver.delta.xy, qb, k=64 * widen,
+                              base=pserver.delta.base)
+            ms[tier] = device_ms(
+                lambda: delta.merge_hybrid_result(res, hit))[0]
+        merge = rep.n_batches * ms["narrow"] + rep.wide_batches * ms["wide"]
+        print(f"# fill 6144: delta_probe {probe:.3f} ms "
+              f"({100 * probe / busy:.1f}% of busy), merge "
+              f"{ms['narrow']:.4f} ms per narrow and {ms['wide']:.4f} ms "
+              f"per wide batch, {merge:.3f} ms over the pass "
+              f"({100 * merge / busy:.1f}% of busy; {rep.n_batches} narrow "
+              f"+ {rep.wide_batches} wide batches)")
+    return counts, f"{mixed.n_queries / dt_s:.0f} queries/s"
 
 
 def main(argv=None) -> int:
@@ -622,8 +847,9 @@ def main(argv=None) -> int:
     idx = serve.build_index(args)
     print(f"# index built in {time.time()-t0:.1f}s")
 
+    inserts = make_inserts()
     print("# kernels vs plain versions on the card:")
-    rows = kernel_checks(idx, args, dev)
+    rows = kernel_checks(idx, args, dev, inserts)
 
     # -- the range stream in Hilbert order (the reference's default)
     kcuda.reset_launch_counts()
@@ -693,6 +919,9 @@ def main(argv=None) -> int:
                   f"the {qt} stream built a dense [B, L] visited mask")
         rates[qt] = ", ".join(f"{v:.0f} {k}" for k, v in out.items())
 
+    counts["mixed"], rates["mixed"] = mixed_stream(idx, base_argv, inserts,
+                                                   dev)
+
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -706,7 +935,8 @@ def main(argv=None) -> int:
           f"order ({ai:.1f}% answered on the AI path, {acc:.2f} leaf "
           f"accesses/query; {rates['range (arrival order)']} in arrival "
           f"order); knn {rates['knn']}; join {rates['join']}; point "
-          f"{rates['point']} ({opts.points} points, batch {args.batch})")
+          f"{rates['point']}; mixed {rates['mixed']} with {INSERTS} "
+          f"inserts ({opts.points} points, batch {args.batch})")
     print(f"# smoke finished in {time.time()-t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

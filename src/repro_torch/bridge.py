@@ -4,8 +4,11 @@
 by attribute and converts each with ``np.asarray`` — so it accepts the
 JAX package's arrays without importing JAX — then builds the port's
 ``HybridTree`` on ``device``: tree levels, leaf entries and ids, the grid,
-``cell_ok``, the MLP bank and the router. The tests use it to run both
-packages on the same fitted index.
+``cell_ok``, the MLP or kNN bank and the router.
+``fit_state_from_reference(s)`` carries a reference ``build.FitState``
+across (host numpy, lists of ``bytes`` and ``frozenset``s), so a port
+``FreshServer`` can run the maintenance loop on the same fitted world.
+The tests use both to run the two packages side by side.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.aitree import make_aitree
+from repro_torch.core.build import FitState
+from repro_torch.core.classifiers.knn import KNNBank
 from repro_torch.core.classifiers.mlp import MLPBank
 from repro_torch.core.classifiers.router import Router
 from repro_torch.core.device_tree import DeviceTree, Level
@@ -44,21 +49,33 @@ def tree_from_reference(tree, device: str | torch.device = "cuda"
     )
 
 
+def _bank_from_reference(bank, kind: str,
+                        device: str | torch.device = "cuda"):
+    """A reference MLP or kNN bank → the port's, on ``device``."""
+    dev = resolve_device(device)
+    if kind == "mlp":
+        return MLPBank(
+            w1=_t(bank.w1, dev, np.float32), b1=_t(bank.b1, dev, np.float32),
+            w2=_t(bank.w2, dev, np.float32), b2=_t(bank.b2, dev, np.float32),
+            mu=_t(bank.mu, dev, np.float32), sd=_t(bank.sd, dev, np.float32),
+            label_map=_t(bank.label_map, dev, np.int32),
+            lmask=_t(bank.lmask, dev, bool))
+    if kind == "knn":
+        return KNNBank(feats=_t(bank.feats, dev, np.float32),
+                       labels=_t(bank.labels, dev, np.float32),
+                       label_map=_t(bank.label_map, dev, np.int32),
+                       lmask=_t(bank.lmask, dev, bool), eps=float(bank.eps))
+    raise NotImplementedError(f"{kind} banks are not ported")
+
+
 def hybrid_from_reference(h, device: str | torch.device = "cuda"
                           ) -> HybridTree:
-    """A fitted reference ``HybridTree`` (MLP bank) → the port's."""
+    """A fitted reference ``HybridTree`` (MLP or kNN bank) → the port's."""
     dev = resolve_device(device)
-    ait, bank, router = h.ait, h.ait.bank, h.router
-    if getattr(ait, "kind", "mlp") != "mlp":
-        raise NotImplementedError(f"{ait.kind} banks are not ported yet")
-    port_bank = MLPBank(
-        w1=_t(bank.w1, dev, np.float32), b1=_t(bank.b1, dev, np.float32),
-        w2=_t(bank.w2, dev, np.float32), b2=_t(bank.b2, dev, np.float32),
-        mu=_t(bank.mu, dev, np.float32), sd=_t(bank.sd, dev, np.float32),
-        label_map=_t(bank.label_map, dev, np.int32),
-        lmask=_t(bank.lmask, dev, bool))
+    ait, router = h.ait, h.router
     grid = Grid(bbox=_t(ait.grid.bbox, dev, np.float32), g=int(ait.grid.g))
-    port_ait = make_aitree(grid, port_bank, max_cells=int(ait.max_cells),
+    port_ait = make_aitree(grid, _bank_from_reference(ait.bank, ait.kind, dev),
+                           max_cells=int(ait.max_cells),
                            max_pred=int(ait.max_pred),
                            threshold=float(ait.threshold),
                            cell_ok=_t(ait.cell_ok, dev, bool))
@@ -68,3 +85,25 @@ def hybrid_from_reference(h, device: str | torch.device = "cuda"
                          tau=float(router.tau))
     return HybridTree(tree=tree_from_reference(h.tree, dev), ait=port_ait,
                       router=port_router)
+
+
+def fit_state_from_reference(state) -> FitState:
+    """A reference ``build.FitState`` → the port's (host values copied;
+    the port's ``make_workload`` takes no ``use_kernel``, the device
+    decides, so that labelling setting is dropped)."""
+    return FitState(
+        queries=np.array(state.queries, np.float32),
+        true_rows=[np.array(r, np.int64) for r in state.true_rows],
+        exact=np.array(state.exact, bool),
+        exact_valid=np.array(state.exact_valid, bool),
+        cell_ids=np.array(state.cell_ids, np.int32),
+        cell_valid=np.array(state.cell_valid, bool),
+        overflow=np.array(state.overflow, bool),
+        qp=int(state.qp), cl=int(state.cl),
+        spans=list(state.spans), sigs=list(state.sigs),
+        cell_stale=np.array(state.cell_stale, bool),
+        kind=str(state.kind), mlp_hidden=int(state.mlp_hidden),
+        mlp_epochs=int(state.mlp_epochs),
+        target_fit=float(state.target_fit), seed=int(state.seed),
+        label_kwargs={k: v for k, v in state.label_kwargs.items()
+                      if k != "use_kernel"})

@@ -11,22 +11,27 @@ Query path (Fig. 5/6):
      misprediction signal), grid/prediction overflow — the caller then runs
      the classical R-path for those queries, keeping results exact.
 
-This slice ports the MLP bank (``kind="mlp"``). The serving path
-(``ai_query_compact``) predicts through ``kernels.ops.mlp_predict_compact``
-(the fused CUDA kernel on the card); ``ai_query`` keeps the dense score
-table for exact-fit evaluation.
+Two bank families are ported: the MLP bank (``kind="mlp"``), whose
+serving path (``ai_query_compact``) predicts through
+``kernels.ops.mlp_predict_compact`` (the fused CUDA kernel on the card),
+and the kNN bank (``kind="knn"``), which predicts through the dense score
+table and compacts it, as the reference does. ``ai_query`` keeps the
+dense score table for exact-fit evaluation.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.device_tree import DeviceTree
 from repro_torch.core.grid import Grid, cells_of_queries
 from repro_torch.core.classifiers.mlp import (MLPBank, cell_logits_for,
                                               global_scores)
+from repro_torch.core.classifiers.knn import (KNNBank,
+                                              cell_probs_for as knn_probs)
 from repro_torch.core import traversal
 from repro_torch.kernels import ops as kops
 
@@ -34,36 +39,79 @@ from repro_torch.kernels import ops as kops
 @dataclasses.dataclass(frozen=True)
 class AITree:
     grid: Grid
-    bank: MLPBank
+    bank: Union[MLPBank, KNNBank]
     # Per-cell serve-eligibility guard: cell ``c``'s model may answer on
     # the AI path iff ``cell_ok[c]``. ``build.fit_airtree`` sets it from
     # the per-cell exact-fit flags; queries overlapping any not-ok cell are
     # demoted to the exact R path by ``hybrid_query``.
     cell_ok: torch.Tensor
-    kind: str
+    kind: str            # "mlp" (MLPBank) or "knn" (KNNBank)
     max_cells: int
     max_pred: int
     threshold: float
 
 
-def make_aitree(grid: Grid, bank: MLPBank, *, max_cells: int = 4,
+_PER_CELL = {MLPBank: ("w1", "b1", "w2", "b2", "label_map", "lmask"),
+             KNNBank: ("feats", "labels", "label_map", "lmask")}
+
+
+def bank_n_cells(bank) -> int:
+    """Cell count of either bank family (the guard/label leading axis)."""
+    return bank.label_map.shape[0]
+
+
+def update_bank_cells(bank, cells, **rows):
+    """Functional per-cell splice: a new bank whose rows at ``cells``
+    ([Csub] global cell ids) are replaced by the given ``[Csub, ...]``
+    arrays, every other cell's rows untouched — the write side of
+    ``build.refit_cells``. Only per-cell buffers (leading axis C) may be
+    spliced; globals like ``mu``/``sd`` would retarget every cell."""
+    per_cell = _PER_CELL.get(type(bank))
+    if per_cell is None:
+        raise NotImplementedError(
+            f"update_bank_cells: {type(bank).__name__} has no per-cell "
+            "splice")
+    dev = bank.label_map.device
+    idx = torch.as_tensor(np.asarray(cells, np.int64), device=dev)
+    updates = {}
+    for name, val in rows.items():
+        if name not in per_cell:
+            raise ValueError(f"{name!r} is not a per-cell buffer of "
+                             f"{type(bank).__name__} (allowed: {per_cell})")
+        cur = getattr(bank, name)
+        val = torch.as_tensor(val, device=dev).to(cur.dtype)
+        if tuple(val.shape) != (idx.shape[0],) + tuple(cur.shape[1:]):
+            raise ValueError(f"{name}: row shape {tuple(val.shape)} does "
+                             f"not match ({idx.shape[0]},) + "
+                             f"{tuple(cur.shape[1:])}")
+        new = cur.clone()
+        new[idx] = val
+        updates[name] = new
+    return dataclasses.replace(bank, **updates)
+
+
+def make_aitree(grid: Grid, bank, *, max_cells: int = 4,
                 max_pred: int = 64, threshold: float = 0.5,
                 cell_ok=None) -> AITree:
-    if not isinstance(bank, MLPBank):
+    kinds = {MLPBank: "mlp", KNNBank: "knn"}
+    if type(bank) not in kinds:
         raise NotImplementedError(
-            f"{type(bank).__name__} banks are not ported yet (mlp only)")
+            f"{type(bank).__name__} banks are not ported (mlp, knn)")
+    dev = bank.label_map.device
     if cell_ok is None:
-        cell_ok = torch.ones((bank.n_cells,), dtype=torch.bool,
-                             device=bank.w1.device)
+        cell_ok = torch.ones((bank_n_cells(bank),), dtype=torch.bool,
+                             device=dev)
     return AITree(grid=grid, bank=bank,
-                  cell_ok=torch.as_tensor(cell_ok, device=bank.w1.device),
-                  kind="mlp", max_cells=max_cells, max_pred=max_pred,
-                  threshold=threshold)
+                  cell_ok=torch.as_tensor(cell_ok, device=dev),
+                  kind=kinds[type(bank)], max_cells=max_cells,
+                  max_pred=max_pred, threshold=threshold)
 
 
 def cell_slot_probs(ait: AITree, queries: torch.Tensor,
                     cell_ids: torch.Tensor) -> torch.Tensor:
     """Per-(query, cell-slot) classifier scores: [B, S] ids → [B, S, Cl]."""
+    if ait.kind == "knn":
+        return knn_probs(ait.bank, queries, cell_ids)
     return torch.sigmoid(cell_logits_for(ait.bank, queries, cell_ids))
 
 
@@ -90,9 +138,16 @@ def predict_compact(ait: AITree, queries: torch.Tensor, n_leaves: int
     i32, cell_overflow [B] bool)``.
 
     Semantically ``compact_mask_counted(predict_scores > threshold,
-    max_pred)`` plus the cell-routing overflow flag; on the card the dense
-    ``[B, L]`` score table never exists.
+    max_pred)`` plus the cell-routing overflow flag. With an MLP bank on
+    the card the dense ``[B, L]`` score table never exists; the kNN bank
+    has no prediction kernel (as in the reference) and compacts the dense
+    table.
     """
+    if ait.kind == "knn":
+        scores, overflow = predict_scores(ait, queries, n_leaves)
+        idx, v, cnt = traversal.compact_mask_counted(
+            scores > ait.threshold, ait.max_pred)
+        return idx, v, cnt, overflow
     cell_ids, valid, overflow = cells_of_queries(
         ait.grid, queries, ait.max_cells)
     idx, v, cnt = kops.mlp_predict_compact(

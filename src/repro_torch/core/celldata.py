@@ -78,7 +78,9 @@ def _assemble_cells(grid: Grid, queries: np.ndarray,
 
     Row ``i`` of every output array belongs to global cell ``cells[i]``.
     A cell's rows depend on nothing but its own query list, their labels,
-    and the (Cl, Qp) pads.
+    and the (Cl, Qp) pads — so assembling a subset is bit-identical to
+    slicing those cells out of the full assembly with the same pads, the
+    property ``build.refit_cells`` leans on.
     """
     n = len(cells)
     feats = np.zeros((n, Qp, 4), np.float32)
@@ -138,3 +140,16 @@ def build_cell_datasets(grid: Grid, workload: Workload, *,
     return _assemble_cells(grid, workload.queries, true_rows,
                            np.arange(grid.n_cells), Cl, Qp,
                            per_cell_q=per_cell_q)
+
+
+def build_cell_subset(grid: Grid, queries: np.ndarray,
+                      true_rows: list[np.ndarray], cells: np.ndarray, *,
+                      max_cells_per_query: int, max_labels: int,
+                      max_queries: int) -> CellDataset:
+    """Rebuild just the listed cells' datasets against (possibly fresh)
+    ``true_rows``, with the pad shapes pinned to the deployed bank's —
+    the data side of ``build.refit_cells``. Row ``i`` ↔ ``cells[i]``."""
+    per_cell_q = bucket_cell_queries(grid, queries, max_cells_per_query)
+    return _assemble_cells(grid, queries, true_rows,
+                           np.asarray(cells, np.int64), max_labels,
+                           max_queries, per_cell_q=per_cell_q)

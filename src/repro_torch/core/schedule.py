@@ -206,3 +206,125 @@ def serve_workload(serve_fn: Callable, queries: np.ndarray, *, batch: int,
     return ServeReport(stats=result, n_queries=sched.n_queries,
                        n_batches=sched.n_batches, n_reserved=n_reserved,
                        wide_batches=wide_batches, sort=sort)
+
+
+class MixedReport(NamedTuple):
+    """Aggregate result of one mixed read/write stream."""
+    stats: object           # per-query stats (numpy), submission order
+    n_queries: int
+    n_batches: int
+    n_reserved: int         # rows re-served on the wide tier
+    n_inserts: int          # points staged into the delta store
+    n_repacks: int          # online repacks performed mid-stream
+    #                         (scheduler-initiated via repack_every;
+    #                         policy repacks live in ``maintenance``)
+    n_segments: int         # insert-delimited spans of the query stream
+    seg_bounds: tuple       # per-segment (start, end) submission indices
+    staged: tuple           # per-segment insert chunk ([m, 2] f32 or
+    #                         None) ACTUALLY staged before segment s,
+    #                         plus one trailing after-stream entry —
+    #                         oracles derive each segment's visible point
+    #                         set from this, never by re-deriving the
+    #                         chunking policy
+    sort: str
+    maintenance: tuple = ()  # per-segment (segment_index, decision)
+    #                         entries from the server's ``on_segment``
+    #                         hook (maintenance-policy servers only)
+
+
+def visible_segments(report: MixedReport, base_points: np.ndarray):
+    """Yield ``((lo, hi), visible)`` per segment of a mixed stream:
+    ``visible`` is the [N, 2] f32 point set the segment's queries could
+    see — ``base_points`` plus every chunk the scheduler reports it
+    actually staged before that segment (``report.staged``)."""
+    visible = np.asarray(base_points, np.float32)
+    for s, (lo, hi) in enumerate(report.seg_bounds):
+        if report.staged[s] is not None:
+            visible = np.concatenate([visible, report.staged[s]])
+        yield (lo, hi), visible
+
+
+def serve_mixed_workload(server, queries: np.ndarray,
+                         inserts: Optional[np.ndarray], *, batch: int,
+                         sort: str = "hilbert",
+                         bbox: Optional[np.ndarray] = None,
+                         insert_every: int = 1,
+                         repack_every: int = 0) -> MixedReport:
+    """Serve a query stream with insert batches interleaved.
+
+    ``server`` owns the live serving state (``core.monitor.FreshServer``):
+    ``serve(q)``/``serve_wide(q)`` answer batches, ``insert(points)``
+    stages writes, ``repack()`` swaps in a rebuilt tree, ``delta_fill``
+    reports the buffer level, ``trunc_field`` names the wide-tier flag and
+    ``device`` the stream's device.
+
+    The stream is cut into *segments* of ``insert_every`` query batches;
+    before each segment after the first, the next chunk of ``inserts`` is
+    staged (so segment ``s`` sees exactly the first ``s`` chunks), and a
+    repack fires whenever the buffer holds ≥ ``repack_every`` points (0 =
+    never). Inserts with no later segment to precede — all of them when
+    the stream fits in one segment — are staged after the final segment,
+    so every insert lands in the server. Within a segment the delta store
+    is frozen, so each segment runs through ``serve_workload`` (sorted
+    serving equals arrival order within it, and the wide re-serve happens
+    per segment). Stats come back in submission order.
+    """
+    q = np.asarray(queries, np.float32)
+    n = q.shape[0]
+    ins = None if inserts is None else np.asarray(inserts, np.float32)
+    if bbox is None:
+        bbox = workload_bbox(q)
+    seg = max(1, int(insert_every)) * int(batch)
+    n_segments = -(-n // seg)
+    chunks = [None] * (n_segments + 1)
+    if ins is not None and ins.shape[0]:
+        if n_segments > 1:
+            chunks[1:-1] = np.array_split(ins, n_segments - 1)
+        else:
+            chunks[-1] = ins    # no later segment: stage after the stream
+
+    def _stage(chunk):
+        count = 0
+        if chunk is not None and chunk.shape[0]:
+            server.insert(chunk)
+            count = int(chunk.shape[0])
+            if repack_every and server.delta_fill >= repack_every:
+                server.repack()
+                return count, 1
+        return count, 0
+
+    outs, bounds, maint = [], [], []
+    n_batches = n_reserved = n_inserts = n_repacks = 0
+    on_segment = getattr(server, "on_segment", None)
+    for s in range(n_segments):
+        ni, nr = _stage(chunks[s])
+        n_inserts += ni
+        n_repacks += nr
+        lo, hi = s * seg, min((s + 1) * seg, n)
+        rep = serve_workload(server.serve, q[lo:hi], batch=batch, sort=sort,
+                             bbox=bbox, wide_fn=server.serve_wide,
+                             trunc_field=getattr(server, "trunc_field",
+                                                 "truncated"),
+                             device=server.device)
+        outs.append(rep.stats)
+        bounds.append((lo, hi))
+        n_batches += rep.n_batches
+        n_reserved += rep.n_reserved
+        # between-segments maintenance window: never under a running
+        # segment, so each segment serves against frozen state
+        if on_segment is not None:
+            decision = on_segment()
+            if decision is not None:
+                maint.append((s, decision))
+    ni, nr = _stage(chunks[n_segments])
+    n_inserts += ni
+    n_repacks += nr
+    # per-segment stats are host numpy already: concatenate on the host,
+    # in submission order
+    stats = type(outs[0])(*(np.concatenate(xs, axis=0)
+                            for xs in zip(*outs)))
+    return MixedReport(stats=stats, n_queries=n, n_batches=n_batches,
+                       n_reserved=n_reserved, n_inserts=n_inserts,
+                       n_repacks=n_repacks, n_segments=n_segments,
+                       seg_bounds=tuple(bounds), staged=tuple(chunks),
+                       sort=sort, maintenance=tuple(maint))

@@ -17,8 +17,8 @@
 // written; for the sizes served (tens of thousands of columns) the block
 // scan's two barriers dominate, not bandwidth.
 //
-// Shared by mlp_predict_compact.cu and traverse_compact.cu; the
-// delta-buffer probe will use the same contract.
+// Shared by mlp_predict_compact.cu, traverse_compact.cu and
+// delta_probe.cu.
 #pragma once
 
 #include <cstdint>

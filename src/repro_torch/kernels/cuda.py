@@ -162,6 +162,10 @@ KERNELS = {
         "knn_browse", "knn_browse_launch",
         [_P, _P, _I, _P, _P, _I, _I, _P, _P],
         "src/repro/kernels/knn_browse.py:96"),
+    "delta_probe": Kernel(
+        "delta_probe", "delta_probe_launch",
+        [_P, _I, _P, _I, _I, _P, _P, _P],
+        "src/repro/kernels/delta_probe.py:123"),
 }
 
 

@@ -32,6 +32,7 @@ from repro_torch.kernels import cuda as _cuda
 TRAVERSE_LEAF_CHUNK = 2048
 TRAVERSE_QUERY_TILE = 8
 COMPACT_QUERY_TILE = 4
+DELTA_QUERY_TILE = 4      # kQT in csrc/delta_probe.cu
 CURVES = {"morton": 0, "hilbert": 1}
 # Shared memory one CTA may ask for on sm_90 (232,448 bytes, less room
 # for the kernels' static shared memory).
@@ -197,13 +198,31 @@ def _prep_spatial_key(cxy, curve, order=15):
     return launch, out
 
 
+def _prep_delta_probe(queries, pts, k):
+    B, cap = queries.shape[0], pts.shape[0]
+    if k <= 0:
+        raise ValueError(f"delta_probe needs k > 0, got {k}")
+    smem = DELTA_QUERY_TILE * ((cap + 31) // 32) * 4
+    if smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"delta_probe: a buffer of {cap} points needs "
+                         f"{smem} bytes of shared memory (> "
+                         f"{MAX_DYNAMIC_SMEM})")
+    idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)
+    cnt = torch.empty((B,), dtype=torch.int32, device=queries.device)
+    launch = _launcher("delta_probe", queries.device,
+                       _c(queries, torch.float32), B, _c(pts, torch.float32),
+                       cap, k, idx, cnt)
+    return launch, (idx, cnt)
+
+
 _PREP = {"traverse_fused": _prep_traverse_fused,
          "traverse_compact": _prep_traverse_compact,
          "leaf_refine": _prep_leaf_refine,
          "knn_browse": _prep_knn_browse,
          "mlp_predict_compact": _prep_mlp_predict_compact,
          "forest_infer": _prep_forest_infer,
-         "spatial_key": _prep_spatial_key}
+         "spatial_key": _prep_spatial_key,
+         "delta_probe": _prep_delta_probe}
 
 
 def prepare(name: str, *args):
@@ -284,6 +303,27 @@ def knn_browse(centers: torch.Tensor, leaf_entries: torch.Tensor,
     if out.numel():
         launch()
     return out
+
+
+def delta_probe(queries: torch.Tensor, pts: torch.Tensor, *, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Probe the insert delta buffer: queries [B, 4] × buffer points
+    [cap, 2] → ``(slot_idx [B, k] i32, valid [B, k] bool, count [B]
+    i32)``, the first ``k`` hit positions in insertion order (0 past the
+    count) and each row's full hit count (exact past ``k``).
+
+    Semantically ``compact_mask_counted(contains(queries, pts), k)``; on
+    the card the ``[B, cap]`` containment mask never exists. Unstaged
+    buffer slots must hold +inf.
+    """
+    if not _on_cuda(queries, pts):
+        return ref.delta_probe(queries, pts, k)
+    launch, (idx, cnt) = _prep_delta_probe(queries, pts, k)
+    if cnt.numel():
+        launch()
+    valid = torch.arange(k, dtype=torch.int32, device=cnt.device)[None, :] \
+        < cnt[:, None]
+    return idx, valid, cnt
 
 
 def spatial_key_inputs(queries: torch.Tensor,

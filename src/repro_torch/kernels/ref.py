@@ -175,3 +175,19 @@ def forest_infer(sel: torch.Tensor, thresh: torch.Tensor,
     for t in range(T):
         out = out + tab[t][leaf[:, t]]
     return out
+
+
+def delta_contains(queries: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """queries [B, 4] × buffer points [cap, 2] → [B, cap] bool
+    closed-rectangle containment; +inf (unstaged) points never hit."""
+    return geo.torch_contains_point(queries.to(torch.float32)[:, None, :],
+                                    pts.to(torch.float32)[None, :, :])
+
+
+def delta_probe(queries: torch.Tensor, pts: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense containment → ``compact_mask_counted``: ``(slot_idx [B, k]
+    i32, valid [B, k] bool, count [B] i32)`` — the first ``k`` hit
+    positions in buffer (= insertion) order and the full hit count."""
+    from repro_torch.core.traversal import compact_mask_counted
+    return compact_mask_counted(delta_contains(queries, pts), k)

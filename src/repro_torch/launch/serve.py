@@ -17,7 +17,21 @@ tier. Each stream closes with an oracle line.
 (index-nested-loop spatial join with pair-slot tables). kNN and join
 need only the R-tree. On ``--device cuda`` (the default) every stream
 runs the CUDA kernels of its path; ``--device cpu`` runs their plain
-PyTorch versions. The MLP bank is the one classifier ported.
+PyTorch versions. ``--classifier`` picks the AI-tree's bank: ``mlp``
+(the port's default until the engine is ported) or ``knn`` (the
+default of ``repro.launch.serve``).
+
+Mixed read/write mode (``--insert-rate r``, range stream only): the last
+``r`` of the points is held out of the build and staged as inserts
+between query segments (``schedule.serve_mixed_workload`` over a
+``monitor.FreshServer``): every batch probes the delta buffer (the
+``delta_probe`` kernel on the card), the freshness guard demotes stale
+cells to the exact R path, ``--repack-every N`` repacks once N points are
+staged, and ``--policy default`` runs the maintenance loop (span-diff
+repacks at ``--repack-at`` of ``--delta-cap``, ``--refit-chunk`` cell
+refits per segment). The oracle checks every query's result count
+against brute-force containment over exactly the points visible to its
+segment, on the stream's device.
 """
 from __future__ import annotations
 
@@ -34,6 +48,7 @@ from repro_torch.core import build, device_tree as dt, joins, labels
 from repro_torch.core import knn as knnlib, schedule
 from repro_torch.core.geometry import torch_contains_point
 from repro_torch.core.hybrid import HybridTree, hybrid_query, point_query
+from repro_torch.core.monitor import DefaultPolicy, FreshServer
 from repro_torch.core.rtree import RTree
 from repro_torch.data import synth
 
@@ -46,7 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--queries", type=int, default=4096)
     p.add_argument("--selectivity", type=float, default=5e-5)
     p.add_argument("--node-capacity", type=int, default=128)
-    p.add_argument("--classifier", default="mlp", choices=("mlp",))
+    p.add_argument("--classifier", default="mlp", choices=("mlp", "knn"),
+                   help="AI-tree bank (repro.launch.serve defaults to "
+                        "knn)")
     p.add_argument("--batch", type=int, default=512)
     p.add_argument("--reps", type=int, default=3,
                    help="timed repetitions of the full stream")
@@ -75,13 +92,37 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--join-pairs", type=int, default=16,
                    help="narrow-tier pair-slot width for --query-type "
                         "join")
-    return p.parse_args(argv)
+    p.add_argument("--insert-rate", type=float, default=0.0,
+                   help="fraction of points held out of the build and "
+                        "staged as dynamic inserts during the stream")
+    p.add_argument("--insert-every", type=int, default=4,
+                   help="query batches per stream segment (inserts land "
+                        "between segments)")
+    p.add_argument("--repack-every", type=int, default=0,
+                   help="online repack once this many inserts are staged "
+                        "(0 = never; buffer must then hold them all)")
+    p.add_argument("--delta-cap", type=int, default=8192,
+                   help="delta store capacity (points)")
+    p.add_argument("--policy", default="none", choices=("none", "default"),
+                   help="between-segment maintenance policy: span-diff "
+                        "repacks + stats-driven incremental refit chunks")
+    p.add_argument("--refit-chunk", type=int, default=4,
+                   help="max stale cells retrained per segment decision")
+    p.add_argument("--repack-at", type=float, default=0.75,
+                   help="policy repacks once the delta buffer passes this "
+                        "fill fraction")
+    args = p.parse_args(argv)
+    if args.query_type != "range" and args.insert_rate > 0:
+        p.error("--query-type point/knn/join drive the read-only stream "
+                "(no --insert-rate)")
+    return args
 
 
 @dataclasses.dataclass
 class Index:
     """Everything the build produced for one serving run."""
-    points: np.ndarray
+    points: np.ndarray          # the points in the tree
+    extra: np.ndarray | None    # held-out inserts (``--insert-rate``)
     dtree: dt.DeviceTree
     workload: labels.Workload
     hybrid: HybridTree
@@ -90,19 +131,33 @@ class Index:
 
 def build_tree(args: argparse.Namespace
                ) -> tuple[np.ndarray, dt.DeviceTree]:
-    """Dataset → Guttman R-tree on the device (prints the reference's
-    ``# dataset`` / ``# R-tree`` lines)."""
+    """Dataset → Guttman R-tree on the device over all points but the
+    last ``--insert-rate`` of them, the held-out inserts (prints the
+    reference's ``# dataset`` / ``# R-tree`` lines). Returns every point
+    and the tree."""
     dev = resolve_device(args.device)
     gen = synth.tweets_like if args.dataset == "tweets" else synth.crimes_like
     pts = gen(args.points)
-    print(f"# dataset {args.dataset}: {pts.shape[0]} points")
+    base, extra = split_inserts(pts, args.insert_rate)
+    print(f"# dataset {args.dataset}: {pts.shape[0]} points"
+          + (f" ({extra.shape[0]} held out as inserts)"
+             if extra is not None else ""))
 
     t0 = time.time()
-    tree = RTree(max_entries=args.node_capacity).insert_all(pts)
+    tree = RTree(max_entries=args.node_capacity).insert_all(base)
     dtree = dt.flatten(tree, device=dev)
     print(f"# R-tree: {dtree.n_leaves} leaves, height {dtree.height}, "
           f"built in {time.time()-t0:.1f}s")
     return pts, dtree
+
+
+def split_inserts(pts: np.ndarray, rate: float
+                  ) -> tuple[np.ndarray, np.ndarray | None]:
+    """``(base, inserts)``: the last ``round(rate * N)`` points are the
+    inserts (None when there are none), held out as
+    ``repro.launch.serve`` holds them out."""
+    n_ins = int(round(rate * pts.shape[0]))
+    return (pts[:-n_ins], pts[-n_ins:]) if n_ins else (pts, None)
 
 
 def build_index(args: argparse.Namespace) -> Index:
@@ -120,8 +175,9 @@ def build_index(args: argparse.Namespace) -> Index:
           f"({int(rep.cell_fit.sum())}/{rep.cell_fit.size} cells exact), "
           f"router test acc {rep.router.test_acc:.3f}, "
           f"models {rep.model_bytes/1e6:.2f} MB")
-    return Index(points=pts, dtree=dtree, workload=wl, hybrid=hyb,
-                 report=rep)
+    base, extra = split_inserts(pts, args.insert_rate)
+    return Index(points=base, extra=extra, dtree=dtree, workload=wl,
+                 hybrid=hyb, report=rep)
 
 
 def make_serve_fns(hyb: HybridTree, args: argparse.Namespace):
@@ -386,6 +442,111 @@ def serve_point(hyb: HybridTree, base: np.ndarray,
     return {"queries/s": report.n_queries / dt_s}, mism
 
 
+def make_fresh_server(idx: Index, args: argparse.Namespace
+                      ) -> FreshServer:
+    """The mixed stream's server on the index's device. ``--policy
+    default`` turns on the maintenance loop (span-diff repacks and
+    incremental ``refit_cells`` chunks between segments) with the build's
+    ``FitState``."""
+    fit_state = policy = None
+    if args.policy != "none":
+        policy = DefaultPolicy(refit_chunk=args.refit_chunk,
+                               repack_at=args.repack_at)
+        fit_state = idx.report.fit_state
+    return FreshServer(idx.points, idx.hybrid, delta_cap=args.delta_cap,
+                       max_visited=args.max_visited, max_results=512,
+                       wide_factor=args.wide_factor, fit_state=fit_state,
+                       policy=policy)
+
+
+def mixed_oracle(mixed: schedule.MixedReport, base: np.ndarray,
+                 queries: np.ndarray, device, id_rows: np.ndarray = ()
+                 ) -> tuple[int, int, int]:
+    """Brute force over each segment's visible points
+    (``schedule.visible_segments``) on ``device``: ``(n_results
+    mismatches over every query, id-set mismatches, rows compared)`` —
+    id sets are compared on the ``id_rows`` whose true count fits the
+    result table and whose row is not flagged truncated. A visible
+    point's index is its global id (inserts continue the numbering)."""
+    st = mixed.stats
+    got = np.asarray(st.n_results)
+    trunc = np.asarray(st.truncated).astype(bool)
+    mr = np.asarray(st.result_ids).shape[1]
+    want_ids = set(int(i) for i in id_rows)
+    mism = id_mism = n_rows = 0
+    for (lo, hi), visible in schedule.visible_segments(mixed, base):
+        for o, inside in _inside_chunks(visible, queries[lo:hi], device):
+            n = inside.sum(dim=1).cpu().numpy()
+            q0 = lo + o
+            mism += int(np.sum(n != got[q0:q0 + n.shape[0]]))
+            for j in range(n.shape[0]):
+                qi = q0 + j
+                if qi not in want_ids or trunc[qi] or n[j] > mr:
+                    continue
+                n_rows += 1
+                ids = st.result_ids[qi]
+                want = set(torch.nonzero(inside[j]).flatten().tolist())
+                id_mism += int(set(ids[ids >= 0].tolist()) != want)
+    return mism, id_mism, n_rows
+
+
+def serve_mixed(idx: Index, extra: np.ndarray, args: argparse.Namespace,
+                server: FreshServer | None = None
+                ) -> tuple[schedule.MixedReport, FreshServer, float, int]:
+    """Drive the mixed read/write stream (the range workload with
+    ``extra`` staged between segments), print the reference's ``# mixed
+    stream`` / ``# serve`` / ``# freshness`` (/ ``# policy`` /
+    ``# recovery``) lines and the per-segment brute-force ``# oracle``.
+    Returns ``(report, server, seconds, oracle mismatches)``."""
+    server = server if server is not None else make_fresh_server(idx, args)
+    wl = idx.workload
+    t0 = time.time()
+    mixed = schedule.serve_mixed_workload(
+        server, wl.queries, extra, batch=args.batch, sort=args.sort,
+        bbox=schedule.workload_bbox(wl.queries),
+        insert_every=args.insert_every, repack_every=args.repack_every)
+    dt_s = time.time() - t0
+    st = mixed.stats
+    fs = server.stats()
+    acc = float(st.leaf_accesses.mean())
+    ai = float(st.used_ai.mean())
+    guarded = float(st.guarded.mean())
+    d_hits = int(st.delta_hits.sum())
+    resid = int(np.asarray(getattr(st, server.trunc_field)).sum())
+    print(f"# mixed stream: {mixed.n_queries} queries / {mixed.n_inserts} "
+          f"inserts in {mixed.n_segments} segments ({mixed.n_batches} "
+          f"batches, sort={mixed.sort}), {mixed.n_repacks} repacks, "
+          f"{mixed.n_reserved} re-served wide, {resid} still truncated")
+    print(f"# serve: {mixed.n_queries/dt_s:.0f} queries/s, "
+          f"{acc:.2f} leaf accesses/query, {100*ai:.1f}% AI path, "
+          f"{100*guarded:.1f}% guard-demoted, {d_hits} delta hits")
+    print(f"# freshness: {fs.ok_cells}/{fs.n_cells} cells serve-eligible "
+          f"({fs.fit_cells} exact-fit, {fs.stale_cells} stale, "
+          f"{fs.demoted_cells} demoted), delta "
+          f"fill {fs.delta_fill}/{server.delta.capacity}, "
+          f"{fs.n_repacks} repacks")
+    if server.policy is not None:
+        n_prep = sum(d.repack for _, d in mixed.maintenance)
+        n_ref = sum(r.cells_refit for r in server.refits)
+        n_dem = sum(d.demote.size for _, d in mixed.maintenance)
+        n_pro = sum(d.promote.size for _, d in mixed.maintenance)
+        n_skip = sum(d.refit_skipped for _, d in mixed.maintenance)
+        print(f"# policy: {n_prep} repacks, {n_ref} cell refits "
+              f"({n_skip} skipped), {n_dem} demotions, {n_pro} promotions "
+              f"across {len(mixed.maintenance)} segment decisions")
+        # recovery curve: guard/AI rates per segment show the AI path
+        # coming back chunk by chunk after each span-diff repack
+        curve = "  ".join(
+            f"{s}:{st.guarded[lo:hi].mean():.2f}/"
+            f"{st.used_ai[lo:hi].mean():.2f}"
+            for s, (lo, hi) in enumerate(mixed.seg_bounds))
+        print(f"# recovery (seg:guarded/used_ai): {curve}")
+    mism, _, _ = mixed_oracle(mixed, idx.points, wl.queries, args.device)
+    print(f"# oracle: {mism} / {mixed.n_queries} n_results mismatches vs "
+          f"per-segment brute-force containment")
+    return mixed, server, dt_s, mism
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.query_type in ("knn", "join"):     # the R-tree is all they need
@@ -396,6 +557,9 @@ def main(argv=None) -> None:
     idx = build_index(args)
     if args.query_type == "point":
         serve_point(idx.hybrid, idx.points, args)
+        return
+    if idx.extra is not None:
+        serve_mixed(idx, idx.extra, args)
         return
     report, dt_s = serve_stream(idx.hybrid, idx.workload, args)
     report_stream(report, dt_s, idx)

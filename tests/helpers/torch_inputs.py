@@ -103,3 +103,29 @@ def knn_inputs(rng, L=50, M=16, B=24, K=8, fill=12):
     dy = ent[4, 0, 1] - c[1, 1]
     r2[1, 0] = np.float32(dx * dx) + np.float32(dy * dy)  # d2 == r2
     return np.concatenate([c, r2], axis=1), ent, idx, valid
+
+
+def delta_inputs(rng, B, cap, fill, k):
+    """Delta-probe inputs: a [cap, 2] buffer with ``fill`` staged points
+    (+inf past them) and [B, 4] query rects with the edge rows.
+
+    When ``fill > k`` the first ``k + 1`` points lie on the line y = 5 at
+    x = 5 + i/1024 (exact in f32, away from the random points in
+    [-1, 1]²), and rows 1–3 are degenerate-in-y rects whose edges pass
+    through them: row 1 holds exactly k hits, row 2 k + 1, row 3 has its
+    lower-left corner on point 2 (k - 1 hits). Row 0 hits nothing.
+    """
+    pts = np.full((cap, 2), np.inf, np.float32)
+    pts[:fill] = rng.uniform(-1, 1, (fill, 2))
+    lo = rng.uniform(-1, 1, (B, 2))
+    q = np.concatenate([lo, lo + rng.uniform(0, 0.5, (B, 2))],
+                       1).astype(np.float32)
+    q[0] = [7, 7, 8, 8]
+    if fill > k and B >= 4:
+        step = np.float32(1 / 1024)
+        pts[:k + 1, 0] = 5 + np.arange(k + 1, dtype=np.float32) * step
+        pts[:k + 1, 1] = 5
+        q[1] = [5, 5, 5 + (k - 1) * step, 5]
+        q[2] = [5, 5, 5 + k * step, 5]
+        q[3] = [5 + 2 * step, 5, 6, 6]
+    return q, pts

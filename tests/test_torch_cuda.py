@@ -22,7 +22,8 @@ from repro_torch.kernels import cuda as kcuda, ops, ref  # noqa: E402
 # pytest puts tests/ on sys.path (it has no __init__.py); the card's
 # environment may carry another top-level ``tests`` package
 from helpers.torch_inputs import (  # noqa: E402
-    edge_bank, edge_queries, key_centres, knn_inputs, levels, rects)
+    delta_inputs, edge_bank, edge_queries, key_centres, knn_inputs, levels,
+    rects)
 
 pytestmark = pytest.mark.gpu
 
@@ -170,3 +171,70 @@ def test_knn_browse_kernel(cuda):
     assert torch.equal(got, want)
     assert float(got[1, 0, 0]) == float(args[0][1, 2])   # d2 == r2 kept
     assert torch.isinf(got[3]).all() and torch.isinf(got[..., 100:]).all()
+
+
+@pytest.mark.parametrize("B,cap,fill,k", [
+    (512, 8192, f, k) for k in (64, 512) for f in (0, 1170, 6144, 8192)
+] + [(37, 777, 600, 8), (5, 1, 1, 4)])
+def test_delta_probe_kernel(cuda, B, cap, fill, k):
+    """Bit-equal to ``compact_mask_counted`` of the containment mask at
+    the serving shapes (B 512, cap 8192, the narrow and wide k) and at a
+    cap that is not a multiple of the block and a one-point store; rows
+    with exactly k and k + 1 hits and edges through buffer points."""
+    q, pts = delta_inputs(np.random.default_rng(fill + k), B, cap, fill, k)
+    q, pts = _g(q, cuda), _g(pts, cuda)
+    got = _launched("delta_probe", lambda: ops.delta_probe(q, pts, k=k))
+    want = ref.delta_probe(q, pts, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if fill > k:
+        assert got[2][:4].tolist() == [0, k, k + 1, k - 1]
+
+
+def test_fresh_server_cuda_equals_cpu(cuda):
+    """A toy mixed stream with the maintenance loop (kNN bank built by
+    the port on the CPU, carried to the card): every stats field, the
+    decisions and the final guard equal the same stream on the CPU, and
+    each served batch launched the probe once."""
+    from repro_torch import bridge
+    from repro_torch.core import build, device_tree as dt, labels
+    from repro_torch.core import monitor, schedule
+    from repro_torch.core.rtree import RTree
+    from repro_torch.data import synth
+    pts = synth.tweets_like(3000, seed=0)
+    base, extra = pts[:2700], pts[2700:]
+    tree = dt.flatten(RTree.str_bulk(base, max_entries=32), device="cpu")
+    qs = synth.synth_queries(pts, 2e-4, 200, seed=1)
+    hyb, rep = build.fit_airtree(tree, labels.make_workload(tree, qs),
+                                 kind="knn", grid_sizes=(6,))
+    out = {}
+    for dev in ("cpu", cuda):
+        srv = monitor.FreshServer(
+            base, bridge.hybrid_from_reference(hyb, dev), delta_cap=512,
+            max_visited=64, max_results=256,
+            fit_state=bridge.fit_state_from_reference(rep.fit_state),
+            policy=monitor.DefaultPolicy(repack_at=0.25))
+        before = kcuda.KERNELS["delta_probe"].launches
+        calls = [0]
+        serve_fn, wide_fn = srv.serve, srv.serve_wide
+
+        def counted(fn):
+            def call(q):
+                calls[0] += 1
+                return fn(q)
+            return call
+        srv.serve, srv.serve_wide = counted(serve_fn), counted(wide_fn)
+        mixed = schedule.serve_mixed_workload(srv, qs, extra, batch=64,
+                                              insert_every=1)
+        torch.cuda.synchronize()
+        if dev != "cpu":
+            assert kcuda.KERNELS["delta_probe"].launches - before == \
+                calls[0]
+        out[str(dev)] = (mixed, srv)
+    (cm, cs), (gm, gs) = out["cpu"], out[str(cuda)]
+    for f in cm.stats._fields:
+        assert np.array_equal(getattr(cm.stats, f), getattr(gm.stats, f)), f
+    assert [(s, d.repack, d.refit.tolist()) for s, d in cm.maintenance] \
+        == [(s, d.repack, d.refit.tolist()) for s, d in gm.maintenance]
+    assert torch.equal(cs.hybrid.ait.cell_ok, gs.hybrid.ait.cell_ok.cpu())
+    assert sum(d.repack for _, d in gm.maintenance) >= 1

@@ -292,7 +292,8 @@ def test_port_build_serves_exact_results():
                                       err_msg=f)
     hyb, rep = build.fit_airtree(tree, wl, kind="mlp", grid_sizes=(4,),
                                  mlp_hidden=16, mlp_epochs=800)
-    assert rep.fit_state is None and rep.cell_fit.shape == (16,)
+    assert rep.cell_fit.shape == (16,)
+    assert rep.fit_state.kind == "mlp" and rep.fit_state.n_cells == 16
     res = hybrid_query(hyb, torch.from_numpy(wl.queries), max_visited=256,
                        max_results=512)
     assert not res.truncated.numpy().any()
