@@ -5,17 +5,20 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py                  # the deployment below
     python3 chip_smoke.py --points 100000  # a cut (printed as such)
+    python3 chip_smoke.py --large-points 4000000   # a cut of phase 9
 
 Phases, each failing the run (non-zero exit) on its own error:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. build the serving index through ``repro_torch.launch.serve`` at the
    Chicago Crimes scale of the paper (872K points, node capacity 128,
    4096 queries at selectivity 5e-5, MLP bank);
 4. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving paths give it plus edge rows, and time both;
+   shapes the serving paths give it plus edge rows, and time both (the
+   ancestor-sliced walks with the deployed tree's own table, also against
+   the full-walk kernels; mbr_intersect on every level);
 5. stream the range workload through ``hybrid_query`` in Hilbert order
    (batch 512, narrow ``max_visited`` 64, wide tier x8) with every launch
    count reset just before and read just after; check the ``# oracle``
@@ -38,7 +41,20 @@ Phases, each failing the run (non-zero exit) on its own error:
    id-set mismatches on 512 sampled rows; then the wall split (serving,
    repack, refit) and a profile of one ``FreshServer.serve`` pass over
    the 4096 queries at a delta fill of 6,144;
-8. print the ``kernels:`` line, the serving rates beside the card, the
+8. drive every rung of the walk ladder through ``ops.traverse_fused`` /
+   ``ops.traverse_compact``: a synthetic 1.5M-leaf STR hierarchy whose
+   full walks pass one CTA's shared memory takes both sliced kernels;
+   with a degenerate table the dense walk takes the per-level
+   mbr_intersect loop; a single-level tree is one mbr_intersect; launch
+   counts per step, each result bit-equal to its plain version;
+9. build the large index (``tweets_like`` 40M points, 20x the paper's
+   Tweets set, ``str_bulk`` at capacity 128, flattened onto the card),
+   whose compact walk needs the ancestor-sliced kernel, and serve the
+   kNN and join streams on it (serve.py's defaults; join selectivity
+   1e-6); gates: traverse_compact_sliced launched, no full walk, oracles
+   at 0 mismatches, at least 200 of 256 sampled join rows not truncated;
+   time traverse_compact_sliced on the kNN stream's first batch;
+10. print the ``kernels:`` line, the serving rates beside the card, the
    per-kernel JSON line, and the contract's last line.
 
 It imports neither JAX nor the JAX package, and refuses to run without a
@@ -66,6 +82,7 @@ NEAR = 1e-5                      # MLP scores this close to the threshold
 #                                  may flip between kernel and plain
 TIMING_REPS = 30
 INSERTS = 8192                   # the mixed stream's new records
+LARGE_POINTS = 40_000_000        # the large index: 20x the paper's Tweets
 DELTA_CAP = 8192                 # repro.launch.serve's --delta-cap
 
 
@@ -145,19 +162,20 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def kernel_row(name, mism, launch, plain, n_bytes, n_ops,
-               max_abs_err=0.0) -> dict:
-    """Time ``launch`` (the kernel alone) and ``plain`` on the card, print
-    them beside the bound, and return the kernel's JSON row (launch
+               max_abs_err=0.0, plain_reps=TIMING_REPS, label="") -> dict:
+    """Time ``launch`` (the kernel alone) and ``plain`` on the card
+    (``plain_reps`` calls for a plain version of thousands of launches),
+    print them beside the bound, and return the kernel's JSON row (launch
     count filled in later)."""
     from repro_torch.kernels import cuda as kcuda
     b, by = bound_ms(n_bytes, n_ops)
     k = kcuda.KERNELS[name]
     ms, src = device_ms(launch, f"{name}_kernel")
-    plain_ms, psrc = device_ms(plain)
-    print(f"  {name}: {mism} mismatches, kernel {ms:.4f} ms ({src}; "
+    plain_ms, psrc = device_ms(plain, reps=plain_reps)
+    print(f"  {name}{label}: {mism} mismatches, kernel {ms:.4f} ms ({src}; "
           f"{event_ms(launch):.4f} ms between events), plain "
-          f"{plain_ms:.4f} ms ({psrc}; {event_ms(plain):.4f} ms between "
-          f"events), bound {b:.4f} ms ({by})")
+          f"{plain_ms:.4f} ms ({psrc}; {event_ms(plain, plain_reps):.4f} "
+          f"ms between events), bound {b:.4f} ms ({by})")
     return {"name": name, "route": "cuda",
             "source": str(k.source.relative_to(ROOT)),
             "replaces": k.replaces, "launches": 0,
@@ -289,7 +307,291 @@ def kernel_checks(idx, args, dev, inserts) -> list:
     rows.append(traverse_compact_check(idx, q, dev))
     rows.append(knn_browse_check(idx, args, dev))
     rows.append(delta_probe_check(idx, args, dev, inserts))
+    rows += sliced_checks(idx, q, dev)
     return rows
+
+
+def sliced_checks(idx, q, dev) -> list:
+    """mbr_intersect on the batch against every level of the deployed
+    tree; both ancestor-sliced kernels with the tree's own table, bit-equal
+    to their plain versions and to the full-walk kernels (compact at k 64
+    and 512 with strip rows visiting 0, k and k + 1 leaves). Returns the
+    mbr_intersect and traverse_fused_sliced rows (the compact one is
+    timed on the 40M-point index, where the serving path runs it)."""
+    import torch
+    from repro_torch.data import synth
+    from repro_torch.kernels import ops, ref
+    tree = idx.dtree
+    mb = [lv.mbrs for lv in tree.levels]
+    pa = [lv.parent for lv in tree.levels]
+    sl = tree.aslices
+    B, L = q.shape[0], tree.n_leaves
+    print(f"  ancestor table of the deployed tree: levels "
+          f"{[int(m.shape[0]) for m in mb]}, windows {sl.widths}, "
+          f"{sl.n_tiles} tiles of {sl.tl} leaves")
+    for m in mb:
+        launch, hit = ops.prepare("mbr_intersect", q, m)
+        launch()
+        mism = int((hit != ref.mbr_intersect(q, m)).sum())
+        check(mism == 0, f"mbr_intersect ({m.shape[0]} MBRs): {mism} "
+              "mismatches")
+    launch, vis = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
+    launch()
+    want = ref.traverse_fused_sliced(q, mb, pa, sl.starts, sl.widths, sl.tl)
+    flaunch, full = ops.prepare("traverse_fused", q, mb, pa)
+    flaunch()
+    mism = int((vis != want).sum())
+    check(mism == 0, f"traverse_fused_sliced: {mism} mismatches")
+    check(torch.equal(vis, full), "traverse_fused_sliced differs from the "
+          "full walk's kernel")
+    for k in (64, 512):
+        qk = q.clone()
+        qk[-3:] = torch.from_numpy(synth.strip_queries(
+            mb[-1].cpu().numpy(), [0, k, k + 1])).to(dev)
+        launch, (kidx, kcnt) = ops.prepare("traverse_compact_sliced", qk, mb,
+                                           pa, sl, k)
+        launch()
+        pidx, _, pcnt = ref.traverse_compact_sliced(
+            qk, mb, pa, sl.starts, sl.widths, sl.tl, k)
+        flaunch, (fidx, fcnt) = ops.prepare("traverse_compact", qk, mb, pa,
+                                            k)
+        flaunch()
+        mism = int((kidx != pidx).sum()) + int((kcnt != pcnt).sum())
+        check(mism == 0, f"traverse_compact_sliced (k={k}): {mism} "
+              "mismatches")
+        check(torch.equal(kidx, fidx) and torch.equal(kcnt, fcnt),
+              f"traverse_compact_sliced (k={k}) differs from the full walk")
+        check(kcnt[-3:].tolist() == [0, k, k + 1],
+              f"traverse_compact_sliced: strip rows visit "
+              f"{kcnt[-3:].tolist()}")
+    print(f"  traverse_fused_sliced and traverse_compact_sliced: bit-equal "
+          f"to their plain versions and to the full-walk kernels (k 64 and "
+          f"512, strip rows visiting 0, k, k + 1)")
+    tests, nodes = walk_work(q, mb, pa)
+    launch, _ = ops.prepare("traverse_compact_sliced", q, mb, pa, sl, 64)
+    kernel_row("traverse_compact_sliced", 0, launch,
+               lambda: ref.traverse_compact_sliced(q, mb, pa, sl.starts,
+                                                   sl.widths, sl.tl, 64),
+               B * 16 + nodes * 20 + sl.starts.numel() * 4 + B * 65 * 4,
+               tests * 4, label=" (deployment, k 64)")
+    launch, _ = ops.prepare("mbr_intersect", q, mb[-1])
+    rows = [kernel_row("mbr_intersect", 0, launch,
+                       lambda: ref.mbr_intersect(q, mb[-1]),
+                       (B + L) * 16 + B * L, B * L * 4)]
+    launch, _ = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
+    rows.append(kernel_row(
+        "traverse_fused_sliced", 0, launch,
+        lambda: ref.traverse_fused_sliced(q, mb, pa, sl.starts, sl.widths,
+                                          sl.tl),
+        B * 16 + nodes * 20 + sl.starts.numel() * 4 + B * L, tests * 4))
+    return rows
+
+
+def routing_phase(idx, dev) -> dict:
+    """Every rung of the walk ladder through the normal wrappers. A
+    synthetic 1.5M-leaf STR hierarchy (fanout 89: levels 1, 3, 190,
+    16,854, 1.5M) passes one CTA's shared memory on both full walks:
+    with its table both walks take the sliced kernels; with a degenerate
+    table (every window the whole lane-padded level) the dense walk takes
+    the per-level mbr_intersect loop and the compact walk stays sliced;
+    a single-level tree is one mbr_intersect. Each result is bit-equal
+    to the plain version. Returns the phase's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import device_tree as dt, traversal
+    from repro_torch.core.rtree import RTree
+    from repro_torch.data.synth_tree import synth_levels
+    from repro_torch.kernels import cuda as kcuda, ops, ref
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    mbrs, parents = synth_levels(1_500_000, 89, rng, str_pack=True)
+    mb = [torch.from_numpy(m).to(dev) for m in mbrs]
+    pa = [torch.from_numpy(p).to(dev) for p in parents]
+    sl = dt.build_ancestor_table(pa, device=dev)
+    sizes = [len(p) for p in parents]
+    degen = dt.AncestorTable(
+        starts=torch.zeros_like(sl.starts),
+        widths=tuple(-(-n // dt.LANE) * dt.LANE for n in sizes[:-1]),
+        tl=sl.tl)
+    c = rng.uniform(-1, 1, (512, 2)).astype(np.float32)
+    wd = rng.uniform(0, 0.004, (512, 2)).astype(np.float32)
+    q = torch.from_numpy(np.concatenate([c - wd, c + wd], 1)).to(dev)
+    q[0] = torch.tensor([5.0, 5.0, 6.0, 6.0], device=dev)      # empty
+    print(f"# routing tree: levels {sizes}, full walks need "
+          f"{ops.walk_smem('fused', 'full', sizes)} / "
+          f"{ops.walk_smem('compact', 'full', sizes)} bytes of shared "
+          f"memory (limit {ops.MAX_DYNAMIC_SMEM}); table windows "
+          f"{sl.widths}, degenerate windows {degen.widths} "
+          f"(built in {time.time()-t0:.1f}s)")
+    want = ref.traverse_fused(q, mb, pa)
+    wc = ref.traverse_compact(q, mb, pa, 64)
+    kcuda.reset_launch_counts()
+    steps = []
+
+    def step(label, kind, table, fn, expect):
+        route = ops.walk_route(kind, sizes, table.widths, table.tl)
+        before = kcuda.launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        diff = {n: c - before[n] for n, c in kcuda.launch_counts().items()
+                if c != before[n]}
+        print(f"  {label}: rung {route}, launches {diff}")
+        check(diff == expect, f"{label}: launches {diff}, want {expect}")
+        steps.append(route)
+        return got
+    got = step("traverse_fused, built table", "fused", sl,
+               lambda: ops.traverse_fused(q, mb, pa, slices=sl),
+               {"traverse_fused_sliced": 1})
+    plain = ref.traverse_fused_sliced(q, mb, pa, sl.starts, sl.widths,
+                                      sl.tl)
+    check(torch.equal(got, want) and torch.equal(got, plain),
+          "routing: the sliced dense walk differs from plain")
+    got = step("traverse_compact, built table", "compact", sl,
+               lambda: ops.traverse_compact(q, mb, pa, 64, slices=sl),
+               {"traverse_compact_sliced": 1})
+    check(all(torch.equal(a, b) for a, b in zip(got, wc)),
+          "routing: the sliced compact walk differs from plain")
+    got = step("traverse_fused, degenerate table", "fused", degen,
+               lambda: ops.traverse_fused(q, mb, pa, slices=degen),
+               {"mbr_intersect": len(sizes)})
+    check(torch.equal(got, want), "routing: the per-level walk differs")
+    got = step("traverse_compact, degenerate table", "compact", degen,
+               lambda: ops.traverse_compact(q, mb, pa, 64, slices=degen),
+               {"traverse_compact_sliced": 1})
+    check(all(torch.equal(a, b) for a, b in zip(got, wc)),
+          "routing: the degenerate sliced compact walk differs")
+    check(steps == ["sliced", "sliced", "per_level", "sliced"],
+          f"routing: rungs {steps}")
+    one = dt.flatten(RTree.str_bulk(idx.points[:64], max_entries=128),
+                     device=dev)
+    q1 = torch.from_numpy(idx.workload.queries[:512].copy()).to(dev)
+    q1[-1] = one.levels[0].mbrs[0]
+    before = kcuda.launch_counts()["mbr_intersect"]
+    res = traversal.range_query_compact(one, q1, max_visited=64,
+                                        max_results=512)
+    cpu = traversal.range_query_compact(dt.flatten(
+        RTree.str_bulk(idx.points[:64], max_entries=128), device="cpu"),
+        q1.cpu(), max_visited=64, max_results=512)
+    check(kcuda.launch_counts()["mbr_intersect"] == before + 1,
+          "routing: the single-level tree did not launch mbr_intersect")
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(res, cpu)),
+          "routing: the single-level range query differs from the CPU's")
+    check(int(res.n_visited[-1]) == 1, "routing: the leaf's own MBR missed")
+    counts = kcuda.launch_counts()
+    print(f"# launches over the routing phase: "
+          f"{ {n: c for n, c in counts.items() if c} } "
+          f"({time.time()-t0:.1f}s)")
+    return counts
+
+
+def large_index(dev, card, points: int):
+    """The 40M-point index: ``tweets_like`` (20x the paper's Tweets set),
+    ``RTree.str_bulk`` at capacity 128, flattened onto the card. Its
+    compact walk passes one CTA's shared memory, so the kNN and join
+    streams (serve.py's defaults) must run on traverse_compact_sliced
+    and never on a full walk; both oracles at 0 mismatches. Returns
+    ``(launch counts by stream, rates, the traverse_compact_sliced row)``.
+    """
+    import numpy as np
+    import torch
+    from repro_torch.core import device_tree as dt, knn, schedule
+    from repro_torch.core.rtree import RTree
+    from repro_torch.data import synth
+    from repro_torch.kernels import cuda as kcuda, ops, ref
+    from repro_torch.launch import serve
+    t_all = time.time()
+    t0 = time.time()
+    pts = synth.tweets_like(points, seed=0)
+    t_gen = time.time() - t0
+    t0 = time.time()
+    host = RTree.str_bulk(pts, max_entries=128)
+    t_str = time.time() - t0
+    t0 = time.time()
+    tree = dt.flatten(host, device=dev)
+    torch.cuda.synchronize()
+    t_flat = time.time() - t0
+    del host
+    sizes = [lv.mbrs.shape[0] for lv in tree.levels]
+    sl = tree.aslices
+    routes = {k: ops.walk_route(k, sizes, sl.widths, sl.tl)
+              for k in ("fused", "compact")}
+    print(f"# large index: tweets_like {pts.shape[0]} points in "
+          f"{t_gen:.1f}s, str_bulk (capacity 128) {t_str:.1f}s, flatten "
+          f"{t_flat:.1f}s; {tree.n_leaves} leaves, levels {sizes}, table "
+          f"windows {sl.widths} over {sl.n_tiles} tiles of {sl.tl}, "
+          f"{tree.byte_size() / 1e6:.1f} MB on the card (+ "
+          f"{sl.starts.numel() * 4 / 1e3:.1f} KB of window starts); compact "
+          f"walk {ops.walk_smem('compact', 'full', sizes)} bytes full, "
+          f"{ops.walk_smem('compact', 'sliced', sizes, sl.widths, sl.tl)} "
+          f"sliced; rungs {routes}")
+    walk = "traverse_compact_sliced"
+    if points == LARGE_POINTS:
+        check(ops.walk_route("compact", sizes) != "full"
+              and routes["compact"] == "sliced",
+              f"the large index's compact walk takes {routes['compact']}")
+    elif routes["compact"] == "full":
+        walk = "traverse_compact"
+        print(f"# CUT: at {points} points the compact walk fits one CTA; "
+              "the streams are held to the full walk instead")
+    base = ["--dataset", "tweets", "--points", str(points), "--queries",
+            str(QUERIES), "--batch", "512", "--sort", "hilbert", "--reps",
+            "1", "--max-visited", "64", "--wide-factor", "8", "--device",
+            "cuda"]
+    counts, rates = {}, {}
+    for qt, extra in (("knn", ["--knn-k", "8", "--knn-margin", "2.0"]),
+                      ("join", ["--selectivity", "1e-6", "--join-pairs",
+                                "16"])):
+        args = serve.parse_args(base + extra + ["--query-type", qt])
+        kcuda.reset_launch_counts()
+        fn = serve.serve_knn if qt == "knn" else serve.serve_join
+        out, mism, n_checked = fn(tree, pts, args)
+        torch.cuda.synchronize()
+        counts[qt] = kcuda.launch_counts()
+        print(f"# launches over 2 {qt} streams on the large index: "
+              f"{ {n: c for n, c in counts[qt].items() if c} }")
+        other = ({"traverse_compact", "traverse_compact_sliced"}
+                 - {walk}).pop()
+        check(counts[qt][walk] > 0, f"large {qt}: {walk} never launched")
+        check(counts[qt][other] == 0 and counts[qt]["traverse_fused"] == 0,
+              f"large {qt}: {other} or traverse_fused was launched")
+        check(mism == 0, f"large {qt} oracle: {mism} mismatches")
+        if qt == "join":
+            check(n_checked >= 200, f"large join: only {n_checked} of 256 "
+                  "sampled outer rows not truncated")
+        make = serve.knn_stream if qt == "knn" else serve.join_stream
+        profile_stream(f"{qt} (large index)",
+                       make(tree, pts, args)[-1])
+        rates[qt] = ", ".join(f"{v:.0f} {k}" for k, v in out.items())
+        print(f"# large {qt} on {card}: {rates[qt]}")
+
+    # traverse_compact_sliced at the serving shape: the kNN stream's
+    # first narrow batch (probe boxes in Hilbert order)
+    kargs = serve.parse_args(base + ["--query-type", "knn"])
+    centers, r, _ = serve.knn_stream(tree, pts, kargs)
+    boxes = np.concatenate([centers - r, centers + r], 1).astype(np.float32)
+    sched = schedule.make_schedule(boxes, 512, "hilbert", device=dev)
+    qb = torch.from_numpy(boxes[sched.order[:512]]).to(dev)
+    mb = [lv.mbrs for lv in tree.levels]
+    pa = [lv.parent for lv in tree.levels]
+    launch, (kidx, kcnt) = ops.prepare("traverse_compact_sliced", qb, mb, pa,
+                                       sl, 64)
+    launch()
+    pidx, _, pcnt = ref.traverse_compact_sliced(qb, mb, pa, sl.starts,
+                                                sl.widths, sl.tl, 64)
+    mism = int((kidx != pidx).sum()) + int((kcnt != pcnt).sum())
+    check(mism == 0, f"traverse_compact_sliced (large index): {mism} "
+          "mismatches")
+    tests, nodes = walk_work(qb, mb, pa)
+    row = kernel_row(
+        "traverse_compact_sliced", mism, launch,
+        lambda: ref.traverse_compact_sliced(qb, mb, pa, sl.starts, sl.widths,
+                                            sl.tl, 64),
+        512 * 16 + nodes * 20 + sl.starts.numel() * 4 + 512 * 65 * 4,
+        tests * 4, plain_reps=3,
+        label=f" (large index, kNN batch, mean "
+              f"{float(kcnt.float().mean()):.1f} visited)")
+    print(f"# large-index phase: {time.time()-t_all:.1f}s")
+    return counts, rates, row
 
 
 def spatial_key_check(idx, dev) -> dict:
@@ -803,6 +1105,9 @@ def main(argv=None) -> int:
     p.add_argument("--points", type=int, default=POINTS,
                    help="dataset size (a cut below the deployment's "
                         f"{POINTS} is printed as such)")
+    p.add_argument("--large-points", type=int, default=LARGE_POINTS,
+                   help="the large index's size (a cut below "
+                        f"{LARGE_POINTS} is printed as such)")
     opts = p.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -896,7 +1201,7 @@ def main(argv=None) -> int:
             out, mism = serve.serve_point(idx.hybrid, idx.points, qargs)
         else:
             fn = serve.serve_knn if qt == "knn" else serve.serve_join
-            out, mism = fn(idx.dtree, idx.points, qargs)
+            out, mism, _ = fn(idx.dtree, idx.points, qargs)
         torch.cuda.synchronize()
         counts[qt] = kcuda.launch_counts()
         print(f"# launches over 2 {qt} streams: {counts[qt]}")
@@ -922,6 +1227,16 @@ def main(argv=None) -> int:
     counts["mixed"], rates["mixed"] = mixed_stream(idx, base_argv, inserts,
                                                    dev)
 
+    # -- the walk ladder's rungs, then the 40M-point index's streams
+    counts["routing"] = routing_phase(idx, dev)
+    if opts.large_points != LARGE_POINTS:
+        print(f"# CUT: the large index holds {opts.large_points} points "
+              f"instead of {LARGE_POINTS}")
+    large, large_rates, large_row = large_index(dev, card, opts.large_points)
+    counts["knn (large index)"] = large["knn"]
+    counts["join (large index)"] = large["join"]
+    rows.append(large_row)
+
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -936,7 +1251,9 @@ def main(argv=None) -> int:
           f"accesses/query; {rates['range (arrival order)']} in arrival "
           f"order); knn {rates['knn']}; join {rates['join']}; point "
           f"{rates['point']}; mixed {rates['mixed']} with {INSERTS} "
-          f"inserts ({opts.points} points, batch {args.batch})")
+          f"inserts ({opts.points} points, batch {args.batch}); on the "
+          f"{opts.large_points}-point index knn {large_rates['knn']}, join "
+          f"{large_rates['join']}")
     print(f"# smoke finished in {time.time()-t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 ``hybrid_from_reference(h, device)`` reads the reference object's arrays
 by attribute and converts each with ``np.asarray`` — so it accepts the
 JAX package's arrays without importing JAX — then builds the port's
-``HybridTree`` on ``device``: tree levels, leaf entries and ids, the grid,
+``HybridTree`` on ``device``: tree levels, leaf entries and ids, the
+ancestor table, the grid,
 ``cell_ok``, the MLP or kNN bank and the router.
 ``fit_state_from_reference(s)`` carries a reference ``build.FitState``
 across (host numpy, lists of ``bytes`` and ``frozenset``s), so a port
@@ -21,7 +22,8 @@ from repro_torch.core.build import FitState
 from repro_torch.core.classifiers.knn import KNNBank
 from repro_torch.core.classifiers.mlp import MLPBank
 from repro_torch.core.classifiers.router import Router
-from repro_torch.core.device_tree import DeviceTree, Level
+from repro_torch.core.device_tree import (
+    AncestorTable, DeviceTree, Level, build_ancestor_table)
 from repro_torch.core.grid import Grid
 from repro_torch.core.hybrid import HybridTree
 
@@ -33,10 +35,32 @@ def _t(a, dev: torch.device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 
+def _table_from_reference(sl, parents, dev: torch.device
+                          ) -> AncestorTable | None:
+    """A reference ``AncestorTable`` (or None) → the port's, checked
+    against the port's own ``build_ancestor_table`` of the same parents
+    at the same tile."""
+    own = build_ancestor_table(parents, tl=None if sl is None else sl.tl,
+                               device=dev)
+    if sl is None:
+        if own is not None:
+            raise ValueError("the reference tree has no ancestor table")
+        return None
+    got = AncestorTable(starts=_t(sl.starts, dev, np.int32),
+                        widths=tuple(int(w) for w in sl.widths),
+                        tl=int(sl.tl))
+    if own is None or got.widths != own.widths or \
+            not torch.equal(got.starts, own.starts):
+        raise ValueError("the reference's ancestor table differs from the "
+                         "port's build of the same tree")
+    return got
+
+
 def tree_from_reference(tree, device: str | torch.device = "cuda"
                         ) -> DeviceTree:
     """A reference ``DeviceTree`` → the port's, on ``device``."""
     dev = resolve_device(device)
+    parents = [np.asarray(lv.parent, np.int32) for lv in tree.levels]
     return DeviceTree(
         levels=tuple(Level(mbrs=_t(lv.mbrs, dev, np.float32),
                            parent=_t(lv.parent, dev, np.int32))
@@ -46,6 +70,8 @@ def tree_from_reference(tree, device: str | torch.device = "cuda"
         leaf_counts=_t(tree.leaf_counts, dev, np.int32),
         n_points=int(tree.n_points),
         max_entries=int(tree.max_entries),
+        aslices=_table_from_reference(getattr(tree, "aslices", None),
+                                      parents, dev),
     )
 
 

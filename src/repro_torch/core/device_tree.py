@@ -10,7 +10,10 @@ suitable for batched traversal on the card:
   level above, so frontier expansion is one gather + one rect-intersection;
 * the leaf level additionally stores a padded entry tensor ``[L, M_pad, 2]``
   (pad = +inf, so containment tests fail on padding) and the corresponding
-  point ids ``[L, M_pad]`` (pad = -1).
+  point ids ``[L, M_pad]`` (pad = -1);
+* an ``AncestorTable`` of per-(internal level, leaf tile) ancestor windows,
+  which the ancestor-sliced walks read so that their shared memory does
+  not grow with the tree.
 
 All device tensors are float32/int32 — the f64 host build is only a builder.
 """
@@ -32,6 +35,90 @@ class Level:
     parent: torch.Tensor  # [N_l] i32 index into previous level
 
 
+# The ancestor table's defaults, the reference's (``DEF_TL`` and ``LANE`` of
+# ``src/repro/kernels/traverse_fused.py``), so both packages build the same
+# table from one tree.
+SLICE_TL = 512      # leaves per tile
+LANE = 128          # window width quantum
+
+
+@dataclasses.dataclass(frozen=True)
+class AncestorTable:
+    """Per-(internal level, leaf tile) ancestor windows for the sliced walks.
+
+    The level-order flatten gives every parent's children contiguous ids,
+    so each ``tl``-wide leaf tile's ancestors at internal level ``l`` form
+    a contiguous index range. ``starts[l, t]`` is the *block index* of the
+    ``widths[l]``-wide aligned window holding that range (element offset
+    ``starts[l, t] * widths[l]``); ``widths[l]`` is the smallest power-of-two
+    multiple of ``LANE`` that puts every tile's range in one aligned window,
+    capped at the lane-padded level width (the window is then the whole
+    level). The sliced walks (``kernels.ops``) stage only each tile's
+    windows, so their shared memory depends on ``widths`` and ``tl``, not
+    on the tree's size.
+    """
+    starts: torch.Tensor        # [n_int, n_tiles] i32 window block indices
+    widths: Tuple[int, ...]     # window width per internal level
+    tl: int                     # leaves per tile
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.starts.shape[1])
+
+
+def build_ancestor_table(level_parents, *, tl: int | None = None,
+                         device: str | torch.device | None = None
+                         ) -> AncestorTable | None:
+    """Host-side ancestor-window table of a level hierarchy.
+
+    ``level_parents``: one ``[N_l]`` parent array (numpy or tensor) per
+    level, root first, leaf level last (entry 0 of the root's is unused).
+    ``tl`` defaults to ``SLICE_TL``. ``starts`` goes to ``device`` (the
+    parents' device when they are tensors, else the CPU). Returns None
+    for a single-level tree (root == leaves: nothing to slice).
+
+    Ranges are taken bottom-up by min/max over each tile's slice; widths
+    double from ``LANE`` until every tile's range fits one aligned window,
+    capped at the lane-padded level width.
+    """
+    tl = int(tl or SLICE_TL)
+    if device is None:
+        first = level_parents[0]
+        device = first.device if torch.is_tensor(first) else "cpu"
+    parents = [p.cpu().numpy() if torch.is_tensor(p) else np.asarray(p)
+               for p in level_parents]
+    n_int = len(parents) - 1
+    if n_int < 1:
+        return None
+    L = parents[-1].shape[0]
+    n_tiles = -(-L // tl)
+    los = np.empty((n_int, n_tiles), np.int64)
+    his = np.empty((n_int, n_tiles), np.int64)
+    edges = np.arange(0, L, tl)
+    los[n_int - 1] = np.minimum.reduceat(parents[-1], edges)
+    his[n_int - 1] = np.maximum.reduceat(parents[-1], edges)
+    for l in range(n_int - 1, 0, -1):
+        p = parents[l]
+        for t in range(n_tiles):
+            seg = p[los[l, t]:his[l, t] + 1]
+            los[l - 1, t] = seg.min()
+            his[l - 1, t] = seg.max()
+    widths = []
+    starts = np.zeros((n_int, n_tiles), np.int32)
+    for l in range(n_int):
+        cap = -(-max(parents[l].shape[0], 1) // LANE) * LANE
+        w = LANE
+        while w < cap and not np.all(los[l] // w == his[l] // w):
+            w *= 2
+        if w >= cap:
+            w = cap          # the whole (lane-padded) level in one window
+        else:
+            starts[l] = (los[l] // w).astype(np.int32)
+        widths.append(int(w))
+    return AncestorTable(starts=torch.from_numpy(starts).to(device),
+                         widths=tuple(widths), tl=tl)
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceTree:
     levels: Tuple[Level, ...]        # levels[0] has exactly 1 node (the root)
@@ -40,6 +127,9 @@ class DeviceTree:
     leaf_counts: torch.Tensor        # [L] i32
     n_points: int
     max_entries: int
+    # the sliced walks' windows; ``flatten`` always attaches them (None
+    # for a single-level tree)
+    aslices: AncestorTable | None = None
 
     @property
     def n_leaves(self) -> int:
@@ -67,11 +157,14 @@ class DeviceTree:
 
 
 def flatten(tree: RTree, pad_to: int | None = None,
-            device: str | torch.device = "cuda") -> DeviceTree:
+            device: str | torch.device = "cuda",
+            slice_tl: int | None = None) -> DeviceTree:
     """Flatten a host ``RTree`` to a ``DeviceTree`` on ``device``.
 
     ``pad_to`` overrides the per-leaf entry padding (defaults to ``tree.M``,
-    rounded up to a multiple of 8).
+    rounded up to a multiple of 8). ``slice_tl`` overrides the ancestor
+    table's leaf tile (defaults to ``SLICE_TL``); the table is always
+    attached.
     """
     if tree.points is None:
         raise ValueError("flatten() needs a built tree")
@@ -90,6 +183,7 @@ def flatten(tree: RTree, pad_to: int | None = None,
         level_nodes.append(nxt)
 
     levels: List[Level] = []
+    np_parents: List[np.ndarray] = []
     for depth, nodes in enumerate(level_nodes):
         mbrs = tree.mbrs[nodes].astype(np.float32)
         if depth == 0:
@@ -98,6 +192,7 @@ def flatten(tree: RTree, pad_to: int | None = None,
             pos_above = {n: i for i, n in enumerate(level_nodes[depth - 1])}
             parent = np.array(
                 [pos_above[tree.parent[n]] for n in nodes], dtype=np.int32)
+        np_parents.append(parent)
         levels.append(Level(mbrs=torch.from_numpy(mbrs).to(dev),
                             parent=torch.from_numpy(parent).to(dev)))
 
@@ -124,4 +219,5 @@ def flatten(tree: RTree, pad_to: int | None = None,
         leaf_counts=torch.from_numpy(counts).to(dev),
         n_points=int(tree.points.shape[0]),
         max_entries=tree.M,
+        aslices=build_ancestor_table(np_parents, tl=slice_tl, device=dev),
     )

@@ -28,6 +28,10 @@ from repro_torch.core.device_tree import DeviceTree
 from repro_torch.core.traversal import visited_leaves_compact
 from repro_torch.kernels import ops as kops
 
+# The brute-force oracles hold at most this many (row, point) cells per
+# chunk (a few GB of temporaries on the card), whatever the point count.
+BRUTE_CELLS = 2 ** 28
+
 
 class KnnResult(NamedTuple):
     neighbor_ids: torch.Tensor   # [B, k] i32 entry ids, -1 padded
@@ -126,11 +130,13 @@ def knn_brute(points: np.ndarray, centers: np.ndarray, k: int, *,
     The arithmetic is the serving path's: ``dx*dx + dy*dy`` as three
     separately rounded ops, then the same stable selection, so distances
     compare bit for bit; ids are comparable only where distances are
-    distinct.
+    distinct. ``chunk`` shrinks so that a chunk holds at most
+    ``BRUTE_CELLS`` distances.
     """
     dev = resolve_device(device)
     pts = torch.from_numpy(np.asarray(points, np.float32)).to(dev)
     c = torch.from_numpy(np.asarray(centers, np.float32)).to(dev)
+    chunk = max(1, min(chunk, BRUTE_CELLS // max(pts.shape[0], 1)))
     kk = min(k, pts.shape[0])
     d2s, ids = [], []
     for o in range(0, c.shape[0], chunk):

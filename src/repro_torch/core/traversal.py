@@ -5,9 +5,12 @@ next level is one gather (child → parent) plus one batched
 rectangle-intersection. On a CUDA device the whole root→leaf walk is one
 fused kernel (``kernels.ops.traverse_fused``), and on the serving paths
 one kernel that also compacts the visited set into a slot table
-(``kernels.ops.traverse_compact``: the ``[B, L]`` mask never exists); on
-the CPU their plain versions run the per-level loop. Mask→index
-compaction is sort-free (prefix-count ranks + a rowwise binary search).
+(``kernels.ops.traverse_compact``: the ``[B, L]`` mask never exists); a
+tree too large for one CTA's shared memory walks through its ancestor
+windows (``DeviceTree.aslices``), and past even that level by level on
+the ``mbr_intersect`` kernel. On the CPU the plain versions run the
+per-level loop. Mask→index compaction is sort-free (prefix-count ranks +
+a rowwise binary search).
 
 Also implements the *refinement* step (exact point-in-rect filtering of the
 visited/predicted leaves) and the overlap ratio α = TN/VN (§III-A2).
@@ -30,7 +33,8 @@ def visited_leaf_mask(tree: DeviceTree, queries: torch.Tensor
     visited iff every ancestor MBR (and its own) intersects the query.
     """
     return kops.traverse_fused(queries, [lv.mbrs for lv in tree.levels],
-                               [lv.parent for lv in tree.levels])
+                               [lv.parent for lv in tree.levels],
+                               slices=tree.aslices)
 
 
 def visited_leaf_mask_per_level(tree: DeviceTree, queries: torch.Tensor
@@ -102,7 +106,7 @@ def visited_leaves_compact(tree: DeviceTree, queries: torch.Tensor, k: int
     per row (``kernels.ops.traverse_compact``)."""
     idx, valid, count = kops.traverse_compact(
         queries, [lv.mbrs for lv in tree.levels],
-        [lv.parent for lv in tree.levels], k)
+        [lv.parent for lv in tree.levels], k, slices=tree.aslices)
     return CompactVisit(leaf_idx=idx, valid=valid, n_visited=count,
                         overflow=count > k)
 

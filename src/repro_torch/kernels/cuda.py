@@ -166,6 +166,20 @@ KERNELS = {
         "delta_probe", "delta_probe_launch",
         [_P, _I, _P, _I, _I, _P, _P, _P],
         "src/repro/kernels/delta_probe.py:123"),
+    "mbr_intersect": Kernel(
+        "mbr_intersect", "mbr_intersect_launch",
+        [_P, _I, _P, _I, _P, _P],
+        "src/repro/kernels/mbr_intersect.py:42"),
+    "traverse_fused_sliced": Kernel(
+        "traverse_fused_sliced", "traverse_fused_sliced_launch",
+        [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, ctypes.POINTER(_I),
+         _I, _I, _P, _P, _I, _P, _P],
+        "src/repro/kernels/traverse_fused.py:834"),
+    "traverse_compact_sliced": Kernel(
+        "traverse_compact_sliced", "traverse_compact_sliced_launch",
+        [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, ctypes.POINTER(_I),
+         _I, _I, _P, _P, _I, _I, _P, _P, _P],
+        "src/repro/kernels/traverse_fused.py:886"),
 }
 
 

@@ -15,6 +15,17 @@ launch adds one to that kernel's count (``launch_counts``).
 and lays out the inputs, allocates the outputs, and returns
 ``(launch, outputs)`` where ``launch()`` issues only the kernel — what a
 benchmark times.
+
+The two walks (``traverse_fused``, ``traverse_compact``) climb the
+reference's ladder (``src/repro/kernels/ops.py:244-360``), chosen by
+``walk_route`` from the shapes alone: a single-level tree is one
+``mbr_intersect``; a tree whose full walk fits one CTA's shared memory
+takes the full-walk kernel; past that, the ancestor-sliced kernel over the
+tree's ``AncestorTable`` (built from the parents when the caller has
+none); and when even the sliced walk does not fit, the per-level loop of
+``mbr_intersect`` launches. CPU tensors take none of these rungs: they
+run the one plain walk (``ref.traverse_fused`` / ``ref.traverse_compact``),
+as the reference does with its kernels off.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.core.device_tree import build_ancestor_table
 from repro_torch.kernels import ref
 from repro_torch.kernels import cuda as _cuda
 
@@ -32,6 +44,8 @@ from repro_torch.kernels import cuda as _cuda
 TRAVERSE_LEAF_CHUNK = 2048
 TRAVERSE_QUERY_TILE = 8
 COMPACT_QUERY_TILE = 4
+SLICED_QUERY_TILE = 8           # kQT in csrc/traverse_fused_sliced.cu
+COMPACT_SLICED_QUERY_TILE = 4   # kQT in csrc/traverse_compact_sliced.cu
 DELTA_QUERY_TILE = 4      # kQT in csrc/delta_probe.cu
 CURVES = {"morton": 0, "hilbert": 1}
 # Shared memory one CTA may ask for on sm_90 (232,448 bytes, less room
@@ -72,22 +86,96 @@ def _launcher(name: str, device: torch.device, *args) -> Callable[[], None]:
 
 
 # ---------------------------------------------------------------------------
+# the walk ladder
+# ---------------------------------------------------------------------------
+
+def walk_smem(kind: str, route: str, level_sizes: Sequence[int],
+              widths: Sequence[int] | None = None,
+              tl: int | None = None) -> int:
+    """Shared memory one CTA of walk ``kind`` (``"fused"`` or
+    ``"compact"``) asks for on ``route`` (``"full"`` or ``"sliced"``),
+    for a tree of ``level_sizes`` nodes per level (root first, leaves
+    last) and, on the sliced route, the table's window ``widths`` and
+    leaf tile ``tl``."""
+    if route == "full":
+        width = max(level_sizes[:-1], default=1)
+        if kind == "fused":
+            return 2 * TRAVERSE_QUERY_TILE * width
+        n_words = (level_sizes[-1] + 31) // 32
+        return COMPACT_QUERY_TILE * (n_words * 4 + 2 * width)
+    if route == "sliced":
+        if kind == "fused":
+            return 2 * SLICED_QUERY_TILE * max(widths)
+        return COMPACT_SLICED_QUERY_TILE * ((tl + 31) // 32 * 4 + sum(widths))
+    raise ValueError(f"no shared-memory walk on route {route!r}")
+
+
+def walk_route(kind: str, level_sizes: Sequence[int],
+               widths: Sequence[int] | None = None,
+               tl: int | None = None) -> str:
+    """The rung walk ``kind`` (``"fused"``: dense mask; ``"compact"``:
+    slot table) takes for a tree of ``level_sizes`` nodes per level, root
+    first: ``"mbr_intersect"`` for a single level, ``"full"`` when the full
+    walk's shared memory fits ``MAX_DYNAMIC_SMEM``, else ``"sliced"`` when
+    an ancestor table of window ``widths`` and leaf tile ``tl`` is given
+    and its walk fits, else ``"per_level"``."""
+    if kind not in ("fused", "compact"):
+        raise ValueError(f"walk kind must be fused or compact, got {kind!r}")
+    if len(level_sizes) == 1:
+        return "mbr_intersect"
+    if walk_smem(kind, "full", level_sizes) <= MAX_DYNAMIC_SMEM:
+        return "full"
+    if widths is not None and \
+            walk_smem(kind, "sliced", level_sizes, widths, tl) <= \
+            MAX_DYNAMIC_SMEM:
+        return "sliced"
+    return "per_level"
+
+
+def _slices_usable(sl, n_levels: int, L: int, device: torch.device) -> bool:
+    """Does this ``AncestorTable`` match the tree being walked (its level
+    count, its leaf count at the table's tile, the walk's device)? A
+    table built for another tree must be rejected, not trusted."""
+    if sl is None:
+        return False
+    st = sl.starts
+    return (st.ndim == 2 and st.shape[0] == n_levels - 1
+            and len(sl.widths) == n_levels - 1
+            and st.shape[1] == -(-L // sl.tl) and st.device == device)
+
+
+def _plan(kind: str, queries, level_mbrs, level_parents, slices):
+    """``(route, table)``: the rung ``walk_route`` picks, with the tree's
+    table when the full walk does not fit (``slices`` when it matches the
+    tree, else one built from the parents)."""
+    sizes = [int(m.shape[0]) for m in level_mbrs]
+    route = walk_route(kind, sizes)
+    if route != "per_level":
+        return route, None
+    sl = slices if _slices_usable(slices, len(sizes), sizes[-1],
+                                  queries.device) else \
+        build_ancestor_table(level_parents, device=queries.device)
+    return walk_route(kind, sizes, sl.widths, sl.tl), sl
+
+
+# ---------------------------------------------------------------------------
 # preparation of each CUDA launch
 # ---------------------------------------------------------------------------
 
-def _walk_args(name, queries, level_mbrs, level_parents, smem):
-    """The traversal kernels' shared arguments: queries, the internal
-    levels packed root first with their host offsets, and the leaf level.
-    ``smem(width)`` is the kernel's shared memory for the widest internal
-    level; a tree that outgrows it raises."""
-    sizes = [int(m.shape[0]) for m in level_mbrs[:-1]]
-    width = max(sizes, default=1)
-    if smem(width) > MAX_DYNAMIC_SMEM:
+def _walk_args(name, kind, route, queries, level_mbrs, level_parents,
+               sl=None):
+    """The walk kernels' shared arguments: queries, the internal levels
+    packed root first with their host offsets, and the leaf level. A
+    walk whose shared memory outgrows one CTA raises."""
+    sizes = [int(m.shape[0]) for m in level_mbrs]
+    table = () if sl is None else (sl.widths, sl.tl)
+    smem = walk_smem(kind, route, sizes, *table)
+    if smem > MAX_DYNAMIC_SMEM:
         raise ValueError(
-            f"{name}: an internal level of {width} nodes over "
-            f"{int(level_mbrs[-1].shape[0])} leaves needs {smem(width)} "
-            f"bytes of shared memory (> {MAX_DYNAMIC_SMEM}); trees this "
-            "large need the ancestor-sliced walk, not yet ported")
+            f"{name}: a tree of levels {sizes}"
+            + (f" (windows {list(sl.widths)})" if sl is not None else "")
+            + f" needs {smem} bytes of shared memory (> {MAX_DYNAMIC_SMEM}); "
+            "walk_route sends it to another rung")
     q = _c(queries, torch.float32)
     n_int = len(level_mbrs) - 1
     if n_int:
@@ -96,7 +184,7 @@ def _walk_args(name, queries, level_mbrs, level_parents, smem):
     else:   # never read: the kernel walks zero internal levels
         int_mbrs, int_par = q, q
     offs = [0]
-    for n in sizes:
+    for n in sizes[:-1]:
         offs.append(offs[-1] + n)
     h_offs = (ctypes.c_int * len(offs))(*offs)
     return (q, q.shape[0], int_mbrs, int_par, h_offs, n_int,
@@ -104,10 +192,21 @@ def _walk_args(name, queries, level_mbrs, level_parents, smem):
             _c(level_parents[-1], torch.int32), level_mbrs[-1].shape[0])
 
 
+def _table_args(sl, level_mbrs, device):
+    """The sliced kernels' table arguments: starts on the device, the
+    widths as a host array, the tile count and the tile."""
+    if not _slices_usable(sl, len(level_mbrs), int(level_mbrs[-1].shape[0]),
+                          device):
+        raise ValueError("the ancestor table does not match the tree "
+                         "(level count, leaf tiles or device)")
+    h_w = (ctypes.c_int * len(sl.widths))(*sl.widths)
+    return _c(sl.starts, torch.int32), h_w, sl.n_tiles, sl.tl
+
+
 def _prep_traverse_fused(queries, level_mbrs, level_parents):
     B, L = queries.shape[0], level_mbrs[-1].shape[0]
-    args = _walk_args("traverse_fused", queries, level_mbrs, level_parents,
-                      lambda width: 2 * TRAVERSE_QUERY_TILE * width)
+    args = _walk_args("traverse_fused", "fused", "full", queries, level_mbrs,
+                      level_parents)
     out = torch.empty((B, L), dtype=torch.bool, device=queries.device)
     launch = _launcher("traverse_fused", queries.device, *args,
                        TRAVERSE_LEAF_CHUNK, out)
@@ -118,15 +217,47 @@ def _prep_traverse_compact(queries, level_mbrs, level_parents, k):
     B, L = queries.shape[0], level_mbrs[-1].shape[0]
     if k <= 0:
         raise ValueError(f"traverse_compact needs k > 0, got {k}")
-    n_words = (L + 31) // 32
-    args = _walk_args(
-        "traverse_compact", queries, level_mbrs, level_parents,
-        lambda width: COMPACT_QUERY_TILE * (n_words * 4 + 2 * width))
+    args = _walk_args("traverse_compact", "compact", "full", queries,
+                      level_mbrs, level_parents)
     idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)
     cnt = torch.empty((B,), dtype=torch.int32, device=queries.device)
     launch = _launcher("traverse_compact", queries.device, *args, k, idx,
                        cnt)
     return launch, (idx, cnt)
+
+
+def _prep_traverse_fused_sliced(queries, level_mbrs, level_parents, sl):
+    B, L = queries.shape[0], level_mbrs[-1].shape[0]
+    args = _walk_args("traverse_fused_sliced", "fused", "sliced", queries,
+                      level_mbrs, level_parents, sl)
+    out = torch.empty((B, L), dtype=torch.bool, device=queries.device)
+    launch = _launcher("traverse_fused_sliced", queries.device, *args[:6],
+                       *_table_args(sl, level_mbrs, queries.device),
+                       *args[6:], out)
+    return launch, out
+
+
+def _prep_traverse_compact_sliced(queries, level_mbrs, level_parents, sl, k):
+    B = queries.shape[0]
+    if k <= 0:
+        raise ValueError(f"traverse_compact_sliced needs k > 0, got {k}")
+    args = _walk_args("traverse_compact_sliced", "compact", "sliced",
+                      queries, level_mbrs, level_parents, sl)
+    idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)
+    cnt = torch.empty((B,), dtype=torch.int32, device=queries.device)
+    launch = _launcher("traverse_compact_sliced", queries.device, *args[:6],
+                       *_table_args(sl, level_mbrs, queries.device),
+                       *args[6:], k, idx, cnt)
+    return launch, (idx, cnt)
+
+
+def _prep_mbr_intersect(queries, mbrs):
+    B, N = queries.shape[0], mbrs.shape[0]
+    out = torch.empty((B, N), dtype=torch.bool, device=queries.device)
+    launch = _launcher("mbr_intersect", queries.device,
+                       _c(queries, torch.float32), B, _c(mbrs, torch.float32),
+                       N, out)
+    return launch, out
 
 
 def _prep_leaf_refine(queries, leaf_entries, safe_idx, valid):
@@ -222,7 +353,10 @@ _PREP = {"traverse_fused": _prep_traverse_fused,
          "mlp_predict_compact": _prep_mlp_predict_compact,
          "forest_infer": _prep_forest_infer,
          "spatial_key": _prep_spatial_key,
-         "delta_probe": _prep_delta_probe}
+         "delta_probe": _prep_delta_probe,
+         "mbr_intersect": _prep_mbr_intersect,
+         "traverse_fused_sliced": _prep_traverse_fused_sliced,
+         "traverse_compact_sliced": _prep_traverse_compact_sliced}
 
 
 def prepare(name: str, *args):
@@ -235,19 +369,51 @@ def prepare(name: str, *args):
 # public wrappers
 # ---------------------------------------------------------------------------
 
+def mbr_intersect(queries: torch.Tensor, mbrs: torch.Tensor) -> torch.Tensor:
+    """[B, 4] × [N, 4] → [B, N] bool, closed-rectangle intersection."""
+    if not _on_cuda(queries, mbrs):
+        return ref.mbr_intersect(queries, mbrs)
+    launch, out = _prep_mbr_intersect(queries, mbrs)
+    if out.numel():
+        launch()
+    return out
+
+
+def _per_level_walk(queries, level_mbrs, level_parents) -> torch.Tensor:
+    """The ladder's last rung: one ``mbr_intersect`` per level, the
+    frontier masks through device memory."""
+    mask = mbr_intersect(queries, level_mbrs[0])
+    for mbrs, parent in zip(level_mbrs[1:], level_parents[1:]):
+        mask = mask[:, parent.long()] & mbr_intersect(queries, mbrs)
+    return mask
+
+
 def traverse_fused(queries: torch.Tensor,
                    level_mbrs: Sequence[torch.Tensor],
-                   level_parents: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Fused root→leaf traversal: [B, 4] → visited-leaf mask [B, L] bool.
+                   level_parents: Sequence[torch.Tensor],
+                   slices=None) -> torch.Tensor:
+    """Root→leaf traversal: [B, 4] → visited-leaf mask [B, L] bool.
 
     ``level_mbrs``: one [N_l, 4] tensor per level, root first, leaf level
     last; ``level_parents``: matching [N_l] i32 index into the level above
-    (entry 0 unused). A single-level tree (root == leaves) needs no
-    special case: the kernel walks zero internal levels.
+    (entry 0 unused). ``slices`` is the tree's ``AncestorTable``
+    (``DeviceTree.aslices``), if the caller has one. On CUDA tensors the
+    rung is ``walk_route("fused", ...)``'s; every rung gives the same mask,
+    and CPU tensors run the plain walk.
     """
     if not _on_cuda(queries, *level_mbrs, *level_parents):
         return ref.traverse_fused(queries, level_mbrs, level_parents)
-    launch, out = _prep_traverse_fused(queries, level_mbrs, level_parents)
+    route, sl = _plan("fused", queries, level_mbrs, level_parents, slices)
+    if route == "mbr_intersect":
+        return mbr_intersect(queries, level_mbrs[0])
+    if route == "per_level":
+        return _per_level_walk(queries, level_mbrs, level_parents)
+    if route == "full":
+        launch, out = _prep_traverse_fused(queries, level_mbrs,
+                                           level_parents)
+    else:
+        launch, out = _prep_traverse_fused_sliced(queries, level_mbrs,
+                                                  level_parents, sl)
     if out.numel():
         launch()
     return out
@@ -255,19 +421,33 @@ def traverse_fused(queries: torch.Tensor,
 
 def traverse_compact(queries: torch.Tensor,
                      level_mbrs: Sequence[torch.Tensor],
-                     level_parents: Sequence[torch.Tensor], k: int
+                     level_parents: Sequence[torch.Tensor], k: int,
+                     slices=None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused traversal + compaction: [B, 4] → ``(leaf_idx [B, k] i32,
-    valid [B, k] bool, count [B] i32)`` — the first ``k`` visited leaves
-    in id order (0 past the count) and each row's visited count.
+    """Traversal + compaction: [B, 4] → ``(leaf_idx [B, k] i32, valid
+    [B, k] bool, count [B] i32)`` — the first ``k`` visited leaves in id
+    order (0 past the count) and each row's visited count.
 
     Semantically ``compact_mask_counted(traverse_fused(...), k)``; on the
-    card the ``[B, L]`` visited mask never exists.
+    full and sliced rungs on the card the ``[B, L]`` visited mask never
+    exists. ``slices`` and the rungs as in ``traverse_fused``
+    (``walk_route("compact", ...)``).
     """
+    from repro_torch.core.traversal import compact_mask_counted
     if not _on_cuda(queries, *level_mbrs, *level_parents):
         return ref.traverse_compact(queries, level_mbrs, level_parents, k)
-    launch, (idx, cnt) = _prep_traverse_compact(queries, level_mbrs,
-                                                level_parents, k)
+    route, sl = _plan("compact", queries, level_mbrs, level_parents, slices)
+    if route == "mbr_intersect":
+        return compact_mask_counted(mbr_intersect(queries, level_mbrs[0]), k)
+    if route == "per_level":
+        return compact_mask_counted(
+            _per_level_walk(queries, level_mbrs, level_parents), k)
+    if route == "full":
+        launch, (idx, cnt) = _prep_traverse_compact(queries, level_mbrs,
+                                                    level_parents, k)
+    else:
+        launch, (idx, cnt) = _prep_traverse_compact_sliced(
+            queries, level_mbrs, level_parents, sl, k)
     if cnt.numel():
         launch()
     valid = torch.arange(k, dtype=torch.int32, device=cnt.device)[None, :] \

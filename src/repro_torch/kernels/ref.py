@@ -46,6 +46,72 @@ def traverse_compact(queries: torch.Tensor,
         traverse_fused(queries, level_mbrs, level_parents), k)
 
 
+def traverse_fused_sliced(queries: torch.Tensor,
+                          level_mbrs: Sequence[torch.Tensor],
+                          level_parents: Sequence[torch.Tensor],
+                          starts: torch.Tensor, widths: Sequence[int],
+                          tl: int) -> torch.Tensor:
+    """The walk through an ``AncestorTable``'s windows: [B, 4] → [B, L].
+
+    For leaf tile ``t`` each internal level ``l`` is seen only through its
+    ``widths[l]`` nodes from ``starts[l, t] * widths[l]``; a window past
+    the level's end reads never-intersecting rectangles. Parent indices
+    are rebased to the window of the level above, and an out-of-window
+    parent is dead. With a correctly built table this equals
+    ``traverse_fused`` exactly.
+    """
+    q = queries.to(torch.float32)
+    n_int = len(level_mbrs) - 1
+    L = level_mbrs[-1].shape[0]
+    st = starts.to(torch.int64).cpu().tolist()
+    # each level's hits once, padded with misses to its furthest window
+    hits, pars = [], []
+    for l in range(n_int):
+        n = level_mbrs[l].shape[0]
+        end = max(max(st[l]) * widths[l] + widths[l], n)
+        h = torch.zeros((q.shape[0], end), dtype=torch.bool, device=q.device)
+        h[:, :n] = mbr_intersect(q, level_mbrs[l])
+        par = torch.zeros((end,), dtype=torch.int64, device=q.device)
+        par[:n] = level_parents[l].long()
+        hits.append(h)
+        pars.append(par)
+    outs = []
+    for t in range(-(-L // tl)):
+        mask, prev_s = None, 0
+        for l in range(n_int):
+            s, w = st[l][t] * widths[l], widths[l]
+            if l == 0:
+                mask = hits[0][:, s:s + w]
+            else:
+                rel = pars[l][s:s + w] - prev_s
+                ok = (rel >= 0) & (rel < widths[l - 1])
+                mask = (mask[:, torch.clamp(rel, 0, widths[l - 1] - 1)]
+                        & ok[None, :] & hits[l][:, s:s + w])
+            prev_s = s
+        lm = level_mbrs[-1][t * tl:(t + 1) * tl]
+        rel = level_parents[-1][t * tl:(t + 1) * tl].long() - prev_s
+        ok = (rel >= 0) & (rel < widths[-1])
+        outs.append(mask[:, torch.clamp(rel, 0, widths[-1] - 1)]
+                    & ok[None, :] & mbr_intersect(q, lm))
+    return torch.cat(outs, dim=1)
+
+
+def traverse_compact_sliced(queries: torch.Tensor,
+                            level_mbrs: Sequence[torch.Tensor],
+                            level_parents: Sequence[torch.Tensor],
+                            starts: torch.Tensor, widths: Sequence[int],
+                            tl: int, k: int
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The windowed walk, compacted: ``compact_mask_counted`` of
+    ``traverse_fused_sliced`` — ``(leaf_idx [B, k] i32, valid [B, k]
+    bool, count [B] i32)``."""
+    from repro_torch.core.traversal import compact_mask_counted
+    return compact_mask_counted(
+        traverse_fused_sliced(queries, level_mbrs, level_parents, starts,
+                              widths, tl), k)
+
+
 def leaf_refine(queries: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor,
                 leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """queries [B,4], ex/ey [L,M], leaf_idx [B,K], valid [B,K] → [B,K,M]

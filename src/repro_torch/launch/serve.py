@@ -164,7 +164,8 @@ def build_index(args: argparse.Namespace) -> Index:
     """``build_tree`` → labels → ``fit_airtree`` (prints the reference's
     ``# workload`` / ``# AI+R`` lines too)."""
     pts, dtree = build_tree(args)
-    qs = synth.synth_queries(pts, args.selectivity, args.queries)
+    qs = synth.synth_queries(pts, args.selectivity, args.queries,
+                             device=args.device)
     wl = labels.make_workload(dtree, qs)
     print(f"# workload: mean α {wl.alpha.mean():.3f}, "
           f"mean visited {wl.n_visited.mean():.1f}")
@@ -270,11 +271,13 @@ def report_stream(report: schedule.ServeReport, dt_s: float,
 def _inside_chunks(points: np.ndarray, rects: np.ndarray, device,
                    chunk: int = 256):
     """Yield ``(offset, inside [n, P] bool)``: closed-rect f32
-    containment of every point, ``chunk`` rects at a time, on
-    ``device`` — the brute-force oracles' containment."""
+    containment of every point, ``chunk`` rects at a time (fewer when
+    ``chunk * P`` would pass ``knn.BRUTE_CELLS``), on ``device`` — the
+    brute-force oracles' containment."""
     dev = resolve_device(device)
     p = torch.from_numpy(np.asarray(points, np.float32)).to(dev)
     r = torch.from_numpy(np.asarray(rects, np.float32)).to(dev)
+    chunk = max(1, min(chunk, knnlib.BRUTE_CELLS // max(p.shape[0], 1)))
     for o in range(0, r.shape[0], chunk):
         yield o, torch_contains_point(r[o:o + chunk, None, :], p[None])
 
@@ -298,11 +301,11 @@ def knn_stream(dtree: dt.DeviceTree, pts: np.ndarray,
 
 
 def serve_knn(dtree: dt.DeviceTree, pts: np.ndarray,
-              args: argparse.Namespace) -> tuple[dict, int]:
+              args: argparse.Namespace) -> tuple[dict, int, int]:
     """kNN stream: distance browsing at a density-derived radius, with
     the radius-doubling wide tier re-serving flagged rows; the port's
     brute-force oracle checks a sample bit for bit. Returns the stream's
-    rate and the oracle's mismatch count."""
+    rate, the oracle's mismatch count and the sampled rows it compared."""
     centers, r, run = knn_stream(dtree, pts, args)
     report, dt_s = timed(run, args.reps)
     st = report.stats
@@ -344,14 +347,16 @@ def serve_knn(dtree: dt.DeviceTree, pts: np.ndarray,
           f"brute-force k-distances (bit-exact; {int(over.sum())} "
           f"overflowed rows flagged), {id_mism} / {id_rows} exact rows "
           f"with distinct distances mismatch brute-force ids")
-    return {"queries/s": report.n_queries / dt_s}, mism + id_mism
+    return ({"queries/s": report.n_queries / dt_s}, mism + id_mism,
+            m - int(over.sum()))
 
 
 def join_stream(dtree: dt.DeviceTree, pts: np.ndarray,
                 args: argparse.Namespace) -> tuple[np.ndarray, Callable]:
     """The join stream: ``(outer, run)``, the outer rects (the range
     workload's generator) and a closure running the two-tier join once."""
-    outer = synth.synth_queries(pts, args.selectivity, args.queries)
+    outer = synth.synth_queries(pts, args.selectivity, args.queries,
+                                device=args.device)
 
     def run() -> joins.JoinReport:
         return joins.spatial_join(
@@ -362,12 +367,12 @@ def join_stream(dtree: dt.DeviceTree, pts: np.ndarray,
 
 
 def serve_join(dtree: dt.DeviceTree, pts: np.ndarray,
-               args: argparse.Namespace) -> tuple[dict, int]:
+               args: argparse.Namespace) -> tuple[dict, int, int]:
     """Spatial join stream: index-nested-loop over the compacting
     traversal, pairs through the pair-slot tables; sampled outer rows'
     pair sets are checked against brute-force containment on the
-    stream's device. Returns the stream's rates and the oracle's
-    mismatch count."""
+    stream's device. Returns the stream's rates, the oracle's mismatch
+    count and the sampled (not truncated) rows it compared."""
     outer, run = join_stream(dtree, pts, args)
     rep, dt_s = timed(run, args.reps)
     print(f"# join stream: {rep.n_outer} outer rects x {pts.shape[0]} "
@@ -392,8 +397,8 @@ def serve_join(dtree: dt.DeviceTree, pts: np.ndarray,
     mism = len(got ^ brute)
     print(f"# oracle: {mism} pair mismatches vs brute-force containment "
           f"over {idx.size} sampled outer rows")
-    return {"outer rows/s": rep.n_outer / dt_s,
-            "pairs/s": rep.n_pairs / dt_s}, mism
+    return ({"outer rows/s": rep.n_outer / dt_s,
+             "pairs/s": rep.n_pairs / dt_s}, mism, int(idx.size))
 
 
 def point_stream(hyb: HybridTree, base: np.ndarray,

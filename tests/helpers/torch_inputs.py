@@ -129,3 +129,22 @@ def delta_inputs(rng, B, cap, fill, k):
         q[2] = [5, 5, 5 + k * step, 5]
         q[3] = [5 + 2 * step, 5, 6, 6]
     return q, pts
+
+
+def near_radius_rows(pts, q, radii):
+    """Rows with any point whose f32 d2 lies within 1 ulp of a probe
+    radius² (either rounding of d2 may put it on either side)."""
+    c = q[:, :2].astype(np.float32)
+    p = np.asarray(pts, np.float32)
+    dx = p[None, :, 0] - c[:, None, 0]
+    dy = p[None, :, 1] - c[:, None, 1]
+    d2 = dx * dx + dy * dy
+    rows = set()
+    for r in radii:
+        r2 = np.float32(r) * np.float32(r)
+        near = np.abs(d2 - r2) <= 2 * np.spacing(r2)
+        rows |= set(np.flatnonzero(near.any(axis=1)).tolist())
+    if rows:
+        print(f"rows within 1 ulp of r² (reported, not compared): "
+              f"{sorted(rows)}")
+    return sorted(rows)

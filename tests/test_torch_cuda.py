@@ -10,14 +10,18 @@ The inputs are the edge-row sets of ``tests/test_torch_kernels.py``
 (which holds the plain versions against the JAX package; the inputs
 live in ``tests/helpers/torch_inputs.py``), moved to the
 card; the kernels must agree bit for bit, and each call must launch its
-kernel once.
+kernel once. The walk ladder's rungs are driven through ``traversal``
+with ``ops.MAX_DYNAMIC_SMEM`` lowered inside the test (``monkeypatch``),
+so small trees take each rung.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import device_tree as dt  # noqa: E402
 from repro_torch.data.synth import strip_queries  # noqa: E402
+from repro_torch.data.synth_tree import synth_levels  # noqa: E402
 from repro_torch.kernels import cuda as kcuda, ops, ref  # noqa: E402
 # pytest puts tests/ on sys.path (it has no __init__.py); the card's
 # environment may carry another top-level ``tests`` package
@@ -50,6 +54,7 @@ def _launched(name, fn):
 
 @pytest.mark.parametrize("n_levels", [3, 1])
 def test_traverse_fused_kernel(cuda, n_levels):
+    """Bit-equal dense walk; a single-level tree is one mbr_intersect."""
     rng = np.random.default_rng(0)
     mbrs, parents = levels(rng, L=5000, n1=90)
     if n_levels == 1:
@@ -57,7 +62,8 @@ def test_traverse_fused_kernel(cuda, n_levels):
     q = _g(edge_queries(rng, mbrs[-1]), cuda)
     mb = [_g(m, cuda) for m in mbrs]
     pa = [_g(p, cuda) for p in parents]
-    got = _launched("traverse_fused", lambda: ops.traverse_fused(q, mb, pa))
+    name = "traverse_fused" if n_levels > 1 else "mbr_intersect"
+    got = _launched(name, lambda: ops.traverse_fused(q, mb, pa))
     assert torch.equal(got, ref.traverse_fused(q, mb, pa))
 
 
@@ -130,7 +136,9 @@ def test_mlp_predict_compact_kernel(cuda):
 @pytest.mark.parametrize("k", [64, 512])
 def test_traverse_compact_kernel(cuda, n_levels, k):
     """Bit-equal to ``compact_mask_counted`` of the walk, with rows
-    visiting 0, exactly k and k + 1 leaves (all L on the single level)."""
+    visiting 0, exactly k and k + 1 leaves (all L on the single level,
+    which is one mbr_intersect); the kernel itself also walks zero
+    internal levels when launched directly."""
     rng = np.random.default_rng(4)
     mbrs, parents = levels(rng, L=5000, n1=90)
     if n_levels == 1:
@@ -139,12 +147,132 @@ def test_traverse_compact_kernel(cuda, n_levels, k):
                         strip_queries(mbrs[-1], [0, k, k + 1, 5000])])
     q, mb = _g(q, cuda), [_g(m, cuda) for m in mbrs]
     pa = [_g(p, cuda) for p in parents]
-    got = _launched("traverse_compact",
-                    lambda: ops.traverse_compact(q, mb, pa, k))
+    name = "traverse_compact" if n_levels > 1 else "mbr_intersect"
+    got = _launched(name, lambda: ops.traverse_compact(q, mb, pa, k))
     want = ref.traverse_compact(q, mb, pa, k)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[2][-4:].tolist() == [0, k, k + 1, 5000]
+    launch, (idx, cnt) = ops.prepare("traverse_compact", q, mb, pa, k)
+    _launched("traverse_compact", launch)
+    assert torch.equal(idx, want[0]) and torch.equal(cnt, want[2])
+
+
+def test_mbr_intersect_kernel(cuda):
+    """Bit-equal at a width off the kernel's chunk, with rects touching
+    only at an edge, point rects and a batch off the query tile."""
+    rng = np.random.default_rng(8)
+    m = rects(rng, 9001, size=0.05)
+    q = rects(rng, 77, -0.1, 1.0, 0.2)
+    q[0] = [m[0, 2], m[0, 1], m[0, 2] + 0.01, m[0, 3]]      # edge
+    q[1] = [m[5, 0], m[5, 1], m[5, 0], m[5, 1]]             # corner
+    q[2] = [5, 5, 6, 6]                                     # empty
+    qg, mg = _g(q, cuda), _g(m, cuda)
+    got = _launched("mbr_intersect", lambda: ops.mbr_intersect(qg, mg))
+    assert torch.equal(got, ref.mbr_intersect(qg, mg))
+    assert got[0, 0] and got[1, 5] and not got[2].any()
+
+
+def _sliced_tree(cuda, L=20_000, fanout=6, tl=512, table="built"):
+    """A synthetic STR hierarchy on the card with its table: ``built``,
+    ``degenerate`` (every window the whole lane-padded level) or
+    ``shifted`` (every other tile's windows moved one block on, some past
+    the level's end: both versions must drop the same leaves)."""
+    mbrs, parents = synth_levels(L, fanout, np.random.default_rng(L),
+                                 str_pack=True)
+    sl = dt.build_ancestor_table(parents, tl=tl, device=cuda)
+    if table == "degenerate":
+        widths = tuple(-(-len(p) // dt.LANE) * dt.LANE for p in parents[:-1])
+        sl = dt.AncestorTable(
+            starts=torch.zeros_like(sl.starts), widths=widths, tl=tl)
+    elif table == "shifted":
+        st = sl.starts.clone()
+        st[1:, 1::2] += 1
+        st[-1, -1] = -(-len(parents[-2]) // sl.widths[-1])
+        sl = dt.AncestorTable(starts=st, widths=sl.widths, tl=tl)
+    return ([_g(m, cuda) for m in mbrs], [_g(p, cuda) for p in parents], sl,
+            mbrs)
+
+
+@pytest.mark.parametrize("table", ["built", "degenerate", "shifted"])
+def test_traverse_fused_sliced_kernel(cuda, table):
+    mb, pa, sl, mbrs = _sliced_tree(cuda, table=table)
+    rng = np.random.default_rng(9)
+    q = _g(np.concatenate([edge_queries(rng, mbrs[-1]),
+                           rects(rng, 60, -1, 1, 0.1),
+                           [[-2, -2, 2, 2]]]).astype(np.float32), cuda)
+    launch, got = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
+    _launched("traverse_fused_sliced", launch)
+    want = ref.traverse_fused_sliced(q, mb, pa, sl.starts, sl.widths, sl.tl)
+    assert torch.equal(got, want)
+    full = ref.traverse_fused(q, mb, pa)
+    assert torch.equal(got, full) == (table != "shifted")
+    assert not got[0].any() and (table == "shifted" or got[-1].all())
+
+
+@pytest.mark.parametrize("table", ["built", "degenerate", "shifted"])
+@pytest.mark.parametrize("k", [64, 512])
+def test_traverse_compact_sliced_kernel(cuda, table, k):
+    """Bit-equal to ``compact_mask_counted`` of the windowed walk, with
+    rows visiting 0, exactly k and k + 1 leaves and a batch off the
+    query tile."""
+    mb, pa, sl, mbrs = _sliced_tree(cuda, table=table)
+    rng = np.random.default_rng(10)
+    q = np.concatenate([edge_queries(rng, mbrs[-1]),
+                        rects(rng, 60, -1, 1, 0.1),
+                        strip_queries(mbrs[-1], [0, k, k + 1])])
+    q = _g(q.astype(np.float32), cuda)
+    launch, (idx, cnt) = ops.prepare("traverse_compact_sliced", q, mb, pa,
+                                     sl, k)
+    _launched("traverse_compact_sliced", launch)
+    want = ref.traverse_compact_sliced(q, mb, pa, sl.starts, sl.widths,
+                                       sl.tl, k)
+    assert torch.equal(idx, want[0]) and torch.equal(cnt, want[2])
+    if table != "shifted":
+        assert cnt[-3:].tolist() == [0, k, k + 1]
+
+
+@pytest.mark.parametrize("kind", ["fused", "compact"])
+@pytest.mark.parametrize("rung", ["full", "sliced", "per_level"])
+def test_walk_rungs_through_traversal(cuda, monkeypatch, kind, rung):
+    """Each rung of the ladder through ``traversal`` on a small tree (the
+    limit lowered so the tree takes it) launches its kernels, and gives
+    the CPU's answer."""
+    from repro_torch.core import traversal
+    mb, pa, sl, mbrs = _sliced_tree(cuda, L=6000, fanout=5, tl=256)
+    tree = dt.DeviceTree(
+        levels=tuple(dt.Level(mbrs=m, parent=p) for m, p in zip(mb, pa)),
+        leaf_entries=torch.full((6000, 8, 2), float("inf"), device=cuda),
+        leaf_entry_ids=torch.full((6000, 8), -1, dtype=torch.int32,
+                                  device=cuda),
+        leaf_counts=torch.zeros(6000, dtype=torch.int32, device=cuda),
+        n_points=0, max_entries=8, aslices=sl)
+    sizes = [len(m) for m in mbrs]
+    limit = {"full": ops.MAX_DYNAMIC_SMEM,
+             "sliced": ops.walk_smem(kind, "sliced", sizes, sl.widths,
+                                     sl.tl),
+             "per_level": 1}[rung]
+    monkeypatch.setattr(ops, "MAX_DYNAMIC_SMEM", limit)
+    assert ops.walk_route(kind, sizes, sl.widths, sl.tl) == rung
+    q = _g(rects(np.random.default_rng(11), 90, -1, 1, 0.2), cuda)
+    kcuda.reset_launch_counts()
+    if kind == "fused":
+        got = [traversal.visited_leaf_mask(tree, q)]
+        want = [ref.traverse_fused(q.cpu(), [m.cpu() for m in mb],
+                                   [p.cpu() for p in pa])]
+    else:
+        got = list(traversal.visited_leaves_compact(tree, q, 64))
+        want = list(ref.traverse_compact(q.cpu(), [m.cpu() for m in mb],
+                                         [p.cpu() for p in pa], 64))
+        want.append(want[2] > 64)
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    expect = {"full": {f"traverse_{kind}": 1},
+              "sliced": {f"traverse_{kind}_sliced": 1},
+              "per_level": {"mbr_intersect": len(sizes)}}[rung]
+    assert {n: c for n, c in counts.items() if c} == expect
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("curve", ["hilbert", "morton"])
@@ -238,3 +366,14 @@ def test_fresh_server_cuda_equals_cpu(cuda):
         == [(s, d.repack, d.refit.tolist()) for s, d in gm.maintenance]
     assert torch.equal(cs.hybrid.ait.cell_ok, gs.hybrid.ait.cell_ok.cpu())
     assert sum(d.repack for _, d in gm.maintenance) >= 1
+
+
+def test_walk_probe_runs(cuda, capsys):
+    """``launch.walk_probe`` at a small size: every kernel it times is
+    bit-equal to its plain version (it asserts so) and it reports each."""
+    from repro_torch.launch import walk_probe
+    assert walk_probe.main(["--leaves", "20000", "--queries", "64"]) == 0
+    out = capsys.readouterr().out
+    for name in ("traverse_compact_sliced", "traverse_fused_sliced",
+                 "mbr_intersect"):
+        assert name in out

@@ -31,6 +31,8 @@ from repro.core.rtree import RTree as JRTree  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.core import joins, knn, schedule, traversal  # noqa: E402
+# pytest puts tests/ on sys.path (it has no __init__.py)
+from helpers.torch_inputs import near_radius_rows  # noqa: E402
 
 CPU = "cpu"
 
@@ -170,25 +172,6 @@ def _knn_queries(pts, n, seed):
     return np.concatenate([c, c], axis=1).astype(np.float32)
 
 
-def _near_radius_rows(pts, q, radii):
-    """Rows with any point whose f32 d2 lies within 1 ulp of a probe
-    radius² (either rounding of d2 may put it on either side)."""
-    c = q[:, :2].astype(np.float32)
-    p = np.asarray(pts, np.float32)
-    dx = p[None, :, 0] - c[:, None, 0]
-    dy = p[None, :, 1] - c[:, None, 1]
-    d2 = dx * dx + dy * dy
-    rows = set()
-    for r in radii:
-        r2 = np.float32(r) * np.float32(r)
-        near = np.abs(d2 - r2) <= 2 * np.spacing(r2)
-        rows |= set(np.flatnonzero(near.any(axis=1)).tolist())
-    if rows:
-        print(f"rows within 1 ulp of r² (reported, not compared): "
-              f"{sorted(rows)}")
-    return sorted(rows)
-
-
 def _assert_knn_close(got, want, skip):
     _assert_fields_equal(got, want, skip_rows=skip,
                          fields=("neighbor_ids", "n_within", "n_visited",
@@ -209,7 +192,7 @@ def test_knn_query_matches_reference(use_kernel):
     q = _knn_queries(pts, 96, 11)
     r = knn.default_radius(ttree, 8)
     assert r == jknn.default_radius(jtree, 8)
-    skip = _near_radius_rows(pts, q, [r])
+    skip = near_radius_rows(pts, q, [r])
     want = jknn.knn_query(jtree, jnp.asarray(q), k=8, radius=r,
                           max_visited=8, use_kernel=use_kernel)
     got = knn.knn_query(ttree, torch.from_numpy(q), k=8, radius=r,
@@ -236,7 +219,7 @@ def test_knn_two_tier_serving_matches_reference():
               "sort"):
         assert getattr(got, f) == getattr(want, f), f
     _assert_knn_close(got.stats, want.stats,
-                      _near_radius_rows(pts, q, [r, 2 * r]))
+                      near_radius_rows(pts, q, [r, 2 * r]))
 
 
 def test_knn_query_matches_own_brute_force():
