@@ -10,7 +10,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each failing the run (non-zero exit) on its own error:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the twelve CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. build the serving index through ``repro_torch.launch.serve`` at the
    Chicago Crimes scale of the paper (872K points, node capacity 128,
@@ -41,20 +41,38 @@ Phases, each failing the run (non-zero exit) on its own error:
    id-set mismatches on 512 sampled rows; then the wall split (serving,
    repack, refit) and a profile of one ``FreshServer.serve`` pass over
    the 4096 queries at a delta fill of 6,144;
-8. drive every rung of the walk ladder through ``ops.traverse_fused`` /
+8. the forest bank (``--classifier forest``) at the deployment:
+   ``fit_airtree(kind="forest")`` on the same tree and labelled workload,
+   the range stream in Hilbert order through it (gates: 0 mismatches
+   against the labels and against brute force on 512 sampled queries,
+   ``mlp_predict_compact`` never launched); then the bank's dense form
+   (``forest.cell_probs_dense``, the path of forest_infer_cells) over the
+   4096 queries in batches of 512, launch counts reset and read around
+   it, each batch bit-equal to the gathered form over every cell; and
+   forest_infer_cells against its plain version, bit-equal, on one such
+   batch and on a synthetic bank (4 trees of depth 8 a cell, 37 labels,
+   empty cells);
+9. the open loop (``--arrival poisson``): the MLP range stream under
+   Poisson arrivals at 1.5x the capacity measured on the card, with the
+   driver's automatic deadline (both from one measurement, so the two
+   runs see the same arrivals), for ``--formation deadline`` and
+   ``full``; gates:
+   0 mismatches on the rows not degraded, the main path's kernels
+   launched; p50/p95/p99 latency, goodput and degraded rows printed;
+10. drive every rung of the walk ladder through ``ops.traverse_fused`` /
    ``ops.traverse_compact``: a synthetic 1.5M-leaf STR hierarchy whose
    full walks pass one CTA's shared memory takes both sliced kernels;
    with a degenerate table the dense walk takes the per-level
    mbr_intersect loop; a single-level tree is one mbr_intersect; launch
    counts per step, each result bit-equal to its plain version;
-9. build the large index (``tweets_like`` 40M points, 20x the paper's
+11. build the large index (``tweets_like`` 40M points, 20x the paper's
    Tweets set, ``str_bulk`` at capacity 128, flattened onto the card),
    whose compact walk needs the ancestor-sliced kernel, and serve the
    kNN and join streams on it (serve.py's defaults; join selectivity
    1e-6); gates: traverse_compact_sliced launched, no full walk, oracles
    at 0 mismatches, at least 200 of 256 sampled join rows not truncated;
    time traverse_compact_sliced on the kNN stream's first batch;
-10. print the ``kernels:`` line, the serving rates beside the card, the
+12. print the ``kernels:`` line, the serving rates beside the card, the
    per-kernel JSON line, and the contract's last line.
 
 It imports neither JAX nor the JAX package, and refuses to run without a
@@ -1100,6 +1118,207 @@ def mixed_stream(idx, base_argv, inserts, dev):
     return counts, f"{mixed.n_queries / dt_s:.0f} queries/s"
 
 
+def forest_phase(idx, base_argv, dev, card):
+    """Phase 8: the forest bank at the deployment — fit, the range stream
+    through it with its gates, the dense path of forest_infer_cells and
+    the kernel's checks. Returns ``(launch counts by path, the stream's
+    summary, the kernel's JSON row)``."""
+    import dataclasses
+    import torch
+    from repro_torch.core import build
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import serve
+    t0 = time.time()
+    hyb, rep = build.fit_airtree(idx.dtree, idx.workload, kind="forest",
+                                 verbose=True)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    print(f"# AI+R (forest): grid {rep.grid_size}², exact-fit "
+          f"{rep.exact_fit:.3f} ({int(rep.cell_fit.sum())}/"
+          f"{rep.cell_fit.size} cells exact), router test acc "
+          f"{rep.router.test_acc:.3f}, models {rep.model_bytes/1e6:.2f} MB, "
+          f"fit {fit_s:.1f}s (host trees + exact-fit evaluation on the card)")
+    fidx = dataclasses.replace(idx, hybrid=hyb, report=rep)
+    fargs = serve.parse_args(base_argv + [
+        "--classifier", "forest", "--sort", "hilbert", "--reps", "1"])
+    kcuda.reset_launch_counts()
+    report, dt_s = serve.serve_stream(hyb, idx.workload, fargs)
+    torch.cuda.synchronize()
+    counts = {"range (forest bank)": kcuda.launch_counts()}
+    mism = serve.report_stream(report, dt_s, fidx)
+    print(f"# launches over 2 forest-bank range streams: "
+          f"{counts['range (forest bank)']}")
+    check(mism == 0, f"forest oracle: {mism} n_results mismatches")
+    for name in ("spatial_key", "traverse_fused", "leaf_refine",
+                 "forest_infer"):
+        check(counts["range (forest bank)"][name] > 0,
+              f"{name} never launched on the forest-bank stream")
+    check(counts["range (forest bank)"]["mlp_predict_compact"] == 0,
+          "the forest-bank stream launched mlp_predict_compact")
+    brute_force_check(fidx, report, dev, 512, 512)
+    st = report.stats
+    ai = 100 * float(st.used_ai.mean())
+    acc = float(st.leaf_accesses.mean())
+    rate = (f"{report.n_queries / dt_s:.0f} queries/s, {ai:.1f}% AI path, "
+            f"{acc:.2f} leaf accesses/query")
+    print(f"# serve forest on {card}: {rate}")
+    profile_stream("range (forest bank)",
+                   serve.range_stream(hyb, idx.workload, fargs))
+    counts["forest (dense)"], row = forest_dense(hyb.ait.bank,
+                                                 idx.workload.queries, dev)
+    return counts, rate, row
+
+
+def forest_dense(bank, queries, dev):
+    """The dense form of the forest bank, ``forest.cell_probs_dense``,
+    over the stream's queries in batches of 512 (launch counts reset
+    before and read after); then, outside the counts, each batch against
+    the gathered form over every cell, and forest_infer_cells against its
+    plain version on the first batch and on a synthetic bank. Returns
+    ``(launch counts, the kernel's JSON row)``."""
+    import torch
+    from repro_torch.core.classifiers import forest
+    from repro_torch.kernels import cuda as kcuda, ops, ref
+    q_all = torch.from_numpy(queries).to(dev)
+    batches = [q_all[o:o + 512] for o in range(0, q_all.shape[0], 512)]
+    kcuda.reset_launch_counts()
+    dense = [forest.cell_probs_dense(bank, q) for q in batches]
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    print(f"# launches over the forest bank's dense form ({len(batches)} "
+          f"batches): { {n: c for n, c in counts.items() if c} }")
+    check(counts["forest_infer_cells"] == len(batches),
+          f"forest_infer_cells launched {counts['forest_infer_cells']} "
+          f"times for {len(batches)} batches")
+    C, T, D = bank.feat_idx.shape
+    Cl = bank.tables.shape[-1]
+    for q, d in zip(batches, dense):
+        ids = torch.arange(C, dtype=torch.int32, device=dev).expand(
+            q.shape[0], C)
+        check(torch.equal(d, forest.cell_probs_for(bank, q, ids)),
+              "cell_probs_dense differs from cell_probs_for over every cell")
+    del dense
+    fi = bank.feat_idx.reshape(C * T, D)
+    th = bank.thresh.reshape(C * T, D)
+    tb = bank.tables.reshape(C * T, 2 ** D, Cl)
+    q = batches[0]
+    launch, votes = ops.prepare("forest_infer_cells", q, fi, th, tb, C)
+    launch()
+    want = ref.forest_infer_cells(q, fi, th, tb, C)
+    mism = int((votes != want).sum())
+    check(mism == 0, f"forest_infer_cells (deployment bank): {mism} "
+          "mismatches (bit-exact)")
+    del votes, want
+    synthetic_forest_check(q, dev)
+    print(f"  forest_infer_cells: bit-equal to its plain version on the "
+          f"deployment's bank ({C} cells x {T} tree, depth {D}, {Cl} "
+          f"labels) and on the synthetic bank; cell_probs_dense equals "
+          f"the gathered form over every cell on all {len(batches)} "
+          f"batches")
+    # the bound counts what this batch needs: the output, the table rows
+    # its codes name (each once), the features and the trees' tests
+    bits = (q[:, fi.long()] > th[None]).long()
+    powers = 2 ** torch.arange(D - 1, -1, -1, device=dev)
+    codes = (bits * powers).sum(-1)                           # [B, C·T]
+    rows = torch.arange(C * T, device=dev)[None, :] * 2 ** D + codes
+    n_rows = int(torch.unique(rows).numel())
+    B = q.shape[0]
+    n_bytes = B * C * Cl * 4 + n_rows * Cl * 4 + q.numel() * 4 \
+        + C * T * D * 8
+    n_ops = B * C * T * D + B * C * Cl * (T - 1)
+    row = kernel_row("forest_infer_cells", mism, launch,
+                     lambda: ref.forest_infer_cells(q, fi, th, tb, C),
+                     n_bytes, n_ops,
+                     label=f" (deployment bank, batch {B}, {n_rows} "
+                           f"distinct table rows)")
+    del rows, codes, bits
+    return counts, row
+
+
+def synthetic_forest_check(q, dev) -> None:
+    """forest_infer_cells on a synthetic bank over the batch's features:
+    16 cells of 4 trees of depth 8, 37 labels (not a multiple of 32),
+    cells 3 and 7 empty (``thresh = +inf``), thresholds from the
+    features' own values so that both branches are taken, one feature
+    exactly on its threshold. Bit-equal to the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(0)
+    C, T, D, Cl = 16, 4, 8, 37
+    x = q.cpu().numpy()
+    B, F = x.shape
+    fi = rng.integers(0, F, (C * T, D)).astype(np.int32)
+    th = x[rng.integers(0, B, (C * T, D)), fi]
+    th[3 * T:4 * T] = np.inf
+    th[7 * T:8 * T] = np.inf
+    tb = rng.uniform(0, 1, (C * T, 2 ** D, Cl)).astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (x, fi, th, tb)]
+    launch, votes = ops.prepare("forest_infer_cells", *args, C)
+    launch()
+    want = ref.forest_infer_cells(*args, C)
+    check(torch.equal(votes, want), "forest_infer_cells (synthetic bank, "
+          f"T 4): {int((votes != want).sum())} mismatches")
+    check(bool((votes[:, 3] == votes[0, 3]).all()),
+          "forest_infer_cells: an empty cell's votes vary by query")
+
+
+def open_loop_phase(idx, base_argv, dev):
+    """Phase 9: the MLP range stream open-loop (``serve_open_loop``)
+    under Poisson arrivals, both formations. The driver's automatic rate
+    (1.5x the measured capacity) and deadline (6x a narrow + wide step)
+    are computed once from one ``serve.measure_capacity`` and passed to
+    both runs, so the two formations see the same arrivals and
+    deadlines. Returns ``(launch counts by path, {formation:
+    summary})``."""
+    import torch
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import serve
+    args = serve.parse_args(base_argv + ["--sort", "hilbert"])
+    narrow, wide, trunc = serve.make_serve_fns(idx.hybrid, args)
+    ts = serve.measure_capacity(narrow, wide, idx.workload.queries, args)
+    step = ts["narrow"] + ts["wide"]
+    rate = 1.5 * args.batch / step
+    print(f"# open-loop capacity: narrow step {ts['narrow']*1e3:.3f} ms, "
+          f"wide step {ts['wide']*1e3:.3f} ms (host clock, median of 3) -> "
+          f"{args.batch / step:.0f} queries/s; both formations at "
+          f"{rate:.0f} queries/s offered, deadline {6e3 * step:.3f} ms")
+    counts, summary = {}, {}
+    for formation in ("deadline", "full"):
+        oargs = serve.parse_args(base_argv + [
+            "--sort", "hilbert", "--arrival", "poisson", "--formation",
+            formation, "--rate", repr(rate), "--deadline-ms",
+            repr(6e3 * step)])
+        kcuda.reset_launch_counts()
+        t0 = time.time()
+        rep, mism = serve.serve_open_loop(narrow, wide, trunc, idx.workload,
+                                          oargs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        path = f"open loop ({formation})"
+        counts[path] = kcuda.launch_counts()
+        print(f"# launches over the {path} stream: "
+              f"{ {n: c for n, c in counts[path].items() if c} }")
+        check(mism == 0, f"{path} oracle: {mism} mismatches on rows not "
+              "degraded")
+        check(rep.stats.truncated[rep.degraded].all(),
+              f"{path}: a degraded row lost its truncation flag")
+        for name in ("spatial_key", "traverse_fused", "leaf_refine",
+                     "mlp_predict_compact", "forest_infer"):
+            check(counts[path][name] > 0,
+                  f"{name} never launched on the {path} stream")
+        lat = rep.telemetry["latency_s"]
+        summary[formation] = (
+            f"p50 {lat['p50']*1e3:.3f} / p95 {lat['p95']*1e3:.3f} / p99 "
+            f"{lat['p99']*1e3:.3f} ms, goodput {100*rep.goodput:.2f}%, "
+            f"{rep.n_degraded} degraded, {rep.n_missed} missed, "
+            f"{rep.n_batches} + {rep.n_wide_batches} wide batches "
+            f"(mean fill {100*rep.mean_fill:.1f}%), {wall:.2f}s wall")
+        print(f"# open loop ({formation}): {summary[formation]}")
+    return counts, summary
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of repro_torch")
     p.add_argument("--points", type=int, default=POINTS,
@@ -1227,6 +1446,13 @@ def main(argv=None) -> int:
     counts["mixed"], rates["mixed"] = mixed_stream(idx, base_argv, inserts,
                                                    dev)
 
+    # -- the forest bank, then the open loop, on the same index
+    fcounts, rates["forest"], frow = forest_phase(idx, base_argv, dev, card)
+    counts.update(fcounts)
+    rows.append(frow)
+    ocounts, open_loop = open_loop_phase(idx, base_argv, dev)
+    counts.update(ocounts)
+
     # -- the walk ladder's rungs, then the 40M-point index's streams
     counts["routing"] = routing_phase(idx, dev)
     if opts.large_points != LARGE_POINTS:
@@ -1251,9 +1477,11 @@ def main(argv=None) -> int:
           f"accesses/query; {rates['range (arrival order)']} in arrival "
           f"order); knn {rates['knn']}; join {rates['join']}; point "
           f"{rates['point']}; mixed {rates['mixed']} with {INSERTS} "
-          f"inserts ({opts.points} points, batch {args.batch}); on the "
-          f"{opts.large_points}-point index knn {large_rates['knn']}, join "
-          f"{large_rates['join']}")
+          f"inserts; forest bank {rates['forest']}; open loop at 1.5x "
+          f"capacity: deadline formation {open_loop['deadline']}, full "
+          f"{open_loop['full']} ({opts.points} points, batch {args.batch}); "
+          f"on the {opts.large_points}-point index knn {large_rates['knn']}, "
+          f"join {large_rates['join']}")
     print(f"# smoke finished in {time.time()-t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

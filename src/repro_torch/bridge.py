@@ -5,7 +5,7 @@ by attribute and converts each with ``np.asarray`` — so it accepts the
 JAX package's arrays without importing JAX — then builds the port's
 ``HybridTree`` on ``device``: tree levels, leaf entries and ids, the
 ancestor table, the grid,
-``cell_ok``, the MLP or kNN bank and the router.
+``cell_ok``, the MLP, kNN or forest bank and the router.
 ``fit_state_from_reference(s)`` carries a reference ``build.FitState``
 across (host numpy, lists of ``bytes`` and ``frozenset``s), so a port
 ``FreshServer`` can run the maintenance loop on the same fitted world.
@@ -19,6 +19,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.aitree import make_aitree
 from repro_torch.core.build import FitState
+from repro_torch.core.classifiers.forest import Forest
 from repro_torch.core.classifiers.knn import KNNBank
 from repro_torch.core.classifiers.mlp import MLPBank
 from repro_torch.core.classifiers.router import Router
@@ -77,7 +78,9 @@ def tree_from_reference(tree, device: str | torch.device = "cuda"
 
 def _bank_from_reference(bank, kind: str,
                         device: str | torch.device = "cuda"):
-    """A reference MLP or kNN bank → the port's, on ``device``."""
+    """A reference MLP, kNN or forest bank → the port's, on ``device``
+    (the forest's ``feat_idx`` as i32, ``thresh`` and ``tables`` as f32,
+    bit for bit)."""
     dev = resolve_device(device)
     if kind == "mlp":
         return MLPBank(
@@ -91,12 +94,19 @@ def _bank_from_reference(bank, kind: str,
                        labels=_t(bank.labels, dev, np.float32),
                        label_map=_t(bank.label_map, dev, np.int32),
                        lmask=_t(bank.lmask, dev, bool), eps=float(bank.eps))
-    raise NotImplementedError(f"{kind} banks are not ported")
+    if kind == "forest":
+        return Forest(feat_idx=_t(bank.feat_idx, dev, np.int32),
+                      thresh=_t(bank.thresh, dev, np.float32),
+                      tables=_t(bank.tables, dev, np.float32),
+                      label_map=_t(bank.label_map, dev, np.int32),
+                      lmask=_t(bank.lmask, dev, bool))
+    raise ValueError(f"unknown bank kind {kind!r}")
 
 
 def hybrid_from_reference(h, device: str | torch.device = "cuda"
                           ) -> HybridTree:
-    """A fitted reference ``HybridTree`` (MLP or kNN bank) → the port's."""
+    """A fitted reference ``HybridTree`` (MLP, kNN or forest bank) → the
+    port's."""
     dev = resolve_device(device)
     ait, router = h.ait, h.router
     grid = Grid(bbox=_t(ait.grid.bbox, dev, np.float32), g=int(ait.grid.g))

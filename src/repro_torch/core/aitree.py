@@ -11,11 +11,12 @@ Query path (Fig. 5/6):
      misprediction signal), grid/prediction overflow — the caller then runs
      the classical R-path for those queries, keeping results exact.
 
-Two bank families are ported: the MLP bank (``kind="mlp"``), whose
-serving path (``ai_query_compact``) predicts through
-``kernels.ops.mlp_predict_compact`` (the fused CUDA kernel on the card),
-and the kNN bank (``kind="knn"``), which predicts through the dense score
-table and compacts it, as the reference does. ``ai_query`` keeps the
+The three bank families of the reference are ported: the MLP bank
+(``kind="mlp"``), whose serving path (``ai_query_compact``) predicts
+through ``kernels.ops.mlp_predict_compact`` (the fused CUDA kernel on the
+card); the kNN bank (``kind="knn"``); and the oblivious-forest bank
+(``kind="forest"``). The kNN and forest banks predict through the dense
+score table and compact it, as the reference does. ``ai_query`` keeps the
 dense score table for exact-fit evaluation.
 """
 from __future__ import annotations
@@ -30,6 +31,9 @@ from repro_torch.core.device_tree import DeviceTree
 from repro_torch.core.grid import Grid, cells_of_queries
 from repro_torch.core.classifiers.mlp import (MLPBank, cell_logits_for,
                                               global_scores)
+from repro_torch.core.classifiers.forest import (Forest,
+                                                 cell_probs_for as
+                                                 forest_probs)
 from repro_torch.core.classifiers.knn import (KNNBank,
                                               cell_probs_for as knn_probs)
 from repro_torch.core import traversal
@@ -39,13 +43,13 @@ from repro_torch.kernels import ops as kops
 @dataclasses.dataclass(frozen=True)
 class AITree:
     grid: Grid
-    bank: Union[MLPBank, KNNBank]
+    bank: Union[MLPBank, KNNBank, Forest]
     # Per-cell serve-eligibility guard: cell ``c``'s model may answer on
     # the AI path iff ``cell_ok[c]``. ``build.fit_airtree`` sets it from
     # the per-cell exact-fit flags; queries overlapping any not-ok cell are
     # demoted to the exact R path by ``hybrid_query``.
     cell_ok: torch.Tensor
-    kind: str            # "mlp" (MLPBank) or "knn" (KNNBank)
+    kind: str            # "mlp" (MLPBank), "knn" (KNNBank) or "forest"
     max_cells: int
     max_pred: int
     threshold: float
@@ -56,7 +60,7 @@ _PER_CELL = {MLPBank: ("w1", "b1", "w2", "b2", "label_map", "lmask"),
 
 
 def bank_n_cells(bank) -> int:
-    """Cell count of either bank family (the guard/label leading axis)."""
+    """Cell count of any bank family (the guard/label leading axis)."""
     return bank.label_map.shape[0]
 
 
@@ -70,7 +74,7 @@ def update_bank_cells(bank, cells, **rows):
     if per_cell is None:
         raise NotImplementedError(
             f"update_bank_cells: {type(bank).__name__} has no per-cell "
-            "splice")
+            "splice (forest banks refit whole)")
     dev = bank.label_map.device
     idx = torch.as_tensor(np.asarray(cells, np.int64), device=dev)
     updates = {}
@@ -93,10 +97,10 @@ def update_bank_cells(bank, cells, **rows):
 def make_aitree(grid: Grid, bank, *, max_cells: int = 4,
                 max_pred: int = 64, threshold: float = 0.5,
                 cell_ok=None) -> AITree:
-    kinds = {MLPBank: "mlp", KNNBank: "knn"}
+    kinds = {MLPBank: "mlp", Forest: "forest", KNNBank: "knn"}
     if type(bank) not in kinds:
-        raise NotImplementedError(
-            f"{type(bank).__name__} banks are not ported (mlp, knn)")
+        raise TypeError(f"{type(bank).__name__} is not a bank "
+                        "(MLPBank, Forest, KNNBank)")
     dev = bank.label_map.device
     if cell_ok is None:
         cell_ok = torch.ones((bank_n_cells(bank),), dtype=torch.bool,
@@ -110,9 +114,13 @@ def make_aitree(grid: Grid, bank, *, max_cells: int = 4,
 def cell_slot_probs(ait: AITree, queries: torch.Tensor,
                     cell_ids: torch.Tensor) -> torch.Tensor:
     """Per-(query, cell-slot) classifier scores: [B, S] ids → [B, S, Cl]."""
+    if ait.kind == "mlp":
+        return torch.sigmoid(cell_logits_for(ait.bank, queries, cell_ids))
     if ait.kind == "knn":
         return knn_probs(ait.bank, queries, cell_ids)
-    return torch.sigmoid(cell_logits_for(ait.bank, queries, cell_ids))
+    if ait.kind == "forest":
+        return forest_probs(ait.bank, queries, cell_ids)
+    raise ValueError(f"unknown bank kind {ait.kind!r}")
 
 
 def predict_scores(ait: AITree, queries: torch.Tensor, n_leaves: int
@@ -139,20 +147,22 @@ def predict_compact(ait: AITree, queries: torch.Tensor, n_leaves: int
 
     Semantically ``compact_mask_counted(predict_scores > threshold,
     max_pred)`` plus the cell-routing overflow flag. With an MLP bank on
-    the card the dense ``[B, L]`` score table never exists; the kNN bank
-    has no prediction kernel (as in the reference) and compacts the dense
-    table.
+    the card the dense ``[B, L]`` score table never exists; the kNN and
+    forest banks have no prediction kernel (as in the reference) and
+    compact the dense table.
     """
-    if ait.kind == "knn":
-        scores, overflow = predict_scores(ait, queries, n_leaves)
-        idx, v, cnt = traversal.compact_mask_counted(
-            scores > ait.threshold, ait.max_pred)
+    if ait.kind == "mlp":
+        cell_ids, valid, overflow = cells_of_queries(
+            ait.grid, queries, ait.max_cells)
+        idx, v, cnt = kops.mlp_predict_compact(
+            queries, ait.bank, cell_ids, valid, n_leaves=n_leaves,
+            k=ait.max_pred, threshold=ait.threshold)
         return idx, v, cnt, overflow
-    cell_ids, valid, overflow = cells_of_queries(
-        ait.grid, queries, ait.max_cells)
-    idx, v, cnt = kops.mlp_predict_compact(
-        queries, ait.bank, cell_ids, valid, n_leaves=n_leaves,
-        k=ait.max_pred, threshold=ait.threshold)
+    if ait.kind not in ("knn", "forest"):
+        raise ValueError(f"unknown bank kind {ait.kind!r}")
+    scores, overflow = predict_scores(ait, queries, n_leaves)
+    idx, v, cnt = traversal.compact_mask_counted(
+        scores > ait.threshold, ait.max_pred)
     return idx, v, cnt, overflow
 
 

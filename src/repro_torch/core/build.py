@@ -1,6 +1,7 @@
 """End-to-end "AI+R"-tree construction for a (data, query) workload.
 
-Implements the paper's training protocol for the MLP and kNN banks:
+Implements the paper's training protocol for the three bank families
+(MLP, kNN and oblivious forest):
   * execute the workload on the R-tree to collect (visited, true) labels
     (``labels.make_workload``, done by the caller);
   * hill-climb the grid size (2×2 → max, §III-B / §V-B3) until the cell
@@ -17,7 +18,9 @@ and certification are per-cell computations with no cross-cell coupling.
 ``refit_cells`` replays the same pipeline on just the cells whose leaf
 span changed (``core.spans``) — relabel → retrain → splice → re-certify —
 giving the bank rows and fit flags a from-scratch ``fit_airtree`` on the
-new tree would give those cells (the router is left as fit).
+new tree would give those cells (the router is left as fit). Forest
+banks have no per-cell splice: they retrain whole through
+``fit_airtree``, and ``refit_cells`` refuses them, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.core import celldata, grid as gridlib, labels
 from repro_torch.core import spans as spanslib
 from repro_torch.core.aitree import (ai_query, bank_n_cells, make_aitree,
                                      update_bank_cells)
+from repro_torch.core.classifiers import forest as forestlib
 from repro_torch.core.classifiers import knn as knnlib, mlp as mlplib
 from repro_torch.core.classifiers.router import train_router, RouterReport
 from repro_torch.core.device_tree import DeviceTree
@@ -183,21 +187,23 @@ def fit_airtree(dtree: DeviceTree, workload: labels.Workload, *,
                 grid_sizes: Sequence[int] = (2, 4, 6, 8, 10, 14, 20),
                 max_cells: int = 4, max_pred: int = 64,
                 target_fit: float = 1.0, mlp_hidden: int = 64,
-                mlp_epochs: int = 3000, seed: int = 0,
+                mlp_epochs: int = 3000, forest_trees: int = 1,
+                forest_depth: int = 8, seed: int = 0,
                 max_labels: Optional[int] = None,
                 max_queries: Optional[int] = None,
                 router_workload: Optional[labels.Workload] = None,
                 label_kwargs: Optional[dict] = None,
                 verbose: bool = False) -> tuple[HybridTree, BuildReport]:
     """Full build on ``dtree``'s device (reference defaults), for
-    ``kind="mlp"`` or ``"knn"``. ``max_labels``/``max_queries`` pin the
-    per-cell pads (default: tight to this workload) — a refit world and a
-    from-scratch world compare bit-identically only under equal pads.
-    ``label_kwargs`` records the ``make_workload`` settings ``workload``
-    was labelled with, so ``refit_cells`` relabels identically."""
-    if kind not in ("mlp", "knn"):
-        raise NotImplementedError(f"kind={kind!r} is not ported "
-                                  "(mlp, knn)")
+    ``kind="mlp"``, ``"knn"`` or ``"forest"`` (``forest_trees`` trees of
+    depth ``forest_depth`` a cell, fit on the host).
+    ``max_labels``/``max_queries`` pin the per-cell pads (default: tight
+    to this workload) — a refit world and a from-scratch world compare
+    bit-identically only under equal pads. ``label_kwargs`` records the
+    ``make_workload`` settings ``workload`` was labelled with, so
+    ``refit_cells`` relabels identically."""
+    if kind not in ("mlp", "knn", "forest"):
+        raise ValueError(f"unknown bank kind {kind!r} (mlp, knn, forest)")
     t0 = time.time()
     dev = dtree.device
     best = None  # (fit, g, ait, bytes, cells, exact, ds)
@@ -212,8 +218,13 @@ def fit_airtree(dtree: DeviceTree, workload: labels.Workload, *,
             bank, _ = mlplib.train_bank(
                 ds, hidden=mlp_hidden, max_epochs=mlp_epochs,
                 target_fit=target_fit, seed=seed, device=dev)
-        else:
+        elif kind == "knn":
             bank = knnlib.fit_knn(ds, device=dev)
+        else:
+            bank = forestlib.fit_forest(
+                ds.feats, ds.labels, ds.qmask, ds.label_map, ds.lmask,
+                n_trees=forest_trees, depth=forest_depth, seed=seed,
+                device=dev)
         nbytes = bank.byte_size()
         ait = make_aitree(gr, bank, max_cells=max_cells, max_pred=max_pred)
         fit, exact = _eval_exact_fit(ait, dtree, workload)
@@ -287,7 +298,8 @@ def refit_cells(hybrid: HybridTree, state: FitState,
     """
     if state.kind not in ("mlp", "knn"):
         raise NotImplementedError(
-            f"refit_cells: kind={state.kind!r} has no per-cell splice")
+            f"refit_cells: kind={state.kind!r} has no per-cell splice "
+            "(forest banks retrain whole via fit_airtree)")
     t0 = time.time()
     dtree = hybrid.tree
     dev = dtree.device

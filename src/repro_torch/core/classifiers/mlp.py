@@ -78,7 +78,9 @@ def global_scores(bank: MLPBank, probs: torch.Tensor,
     B, S, Cl = probs.shape
     ci = cell_ids.long()
     lm = bank.label_map[ci].long()                        # [B, S, Cl]
-    ok = slot_valid[:, :, None] & bank.lmask[ci]
+    # a label id outside [0, L) (a bank not yet renamed to a repacked
+    # tree) is dropped, as the reference's scatter drops it
+    ok = slot_valid[:, :, None] & bank.lmask[ci] & (lm >= 0) & (lm < n_leaves)
     tgt = torch.where(ok, lm, n_leaves)                   # park invalid at L
     flat_t = tgt.reshape(B, S * Cl)
     flat_p = torch.where(ok, probs, 0.0).reshape(B, S * Cl)

@@ -8,7 +8,8 @@ but sits inside that package:
   rolling medians — the maintenance policy's signals
   (``SegmentWindow``);
 * ``QuantileReservoir`` and ``Ewma`` track latency distributions and an
-  online serve-cost estimate for the open-loop runtime (not ported yet).
+  online serve-cost estimate for the open-loop runtime
+  (``core.runtime``).
 
 Everything here is host-side numpy — it runs between serve steps, never
 inside one — and deterministic: the reservoir's eviction RNG is seeded,

@@ -180,6 +180,10 @@ KERNELS = {
         [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, ctypes.POINTER(_I),
          _I, _I, _P, _P, _I, _I, _P, _P, _P],
         "src/repro/kernels/traverse_fused.py:886"),
+    "forest_infer_cells": Kernel(
+        "forest_infer_cells", "forest_infer_cells_launch",
+        [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "src/repro/kernels/forest_infer.py:85"),
 }
 
 

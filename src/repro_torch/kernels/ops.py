@@ -47,6 +47,7 @@ COMPACT_QUERY_TILE = 4
 SLICED_QUERY_TILE = 8           # kQT in csrc/traverse_fused_sliced.cu
 COMPACT_SLICED_QUERY_TILE = 4   # kQT in csrc/traverse_compact_sliced.cu
 DELTA_QUERY_TILE = 4      # kQT in csrc/delta_probe.cu
+FOREST_QUERY_TILE = 32    # kQT in csrc/forest_infer_cells.cu
 CURVES = {"morton": 0, "hilbert": 1}
 # Shared memory one CTA may ask for on sm_90 (232,448 bytes, less room
 # for the kernels' static shared memory).
@@ -305,6 +306,34 @@ def _prep_forest_infer(sel, thresh, tables):
     return launch, out
 
 
+def _prep_forest_infer_cells(features, feat_idx, thresh, tables, n_cells):
+    B, F = features.shape
+    CT, D = feat_idx.shape
+    if n_cells <= 0 or CT % n_cells:
+        raise ValueError(f"forest_infer_cells: {CT} trees do not split "
+                         f"into {n_cells} cells")
+    if not 1 <= D <= 24:
+        raise ValueError(f"forest_infer_cells: depth {D} not in [1, 24]")
+    Cl = tables.shape[-1]
+    if tuple(thresh.shape) != (CT, D) or \
+            tuple(tables.shape[:2]) != (CT, 2 ** D):
+        raise ValueError(f"forest_infer_cells: thresh {tuple(thresh.shape)}"
+                         f" / tables {tuple(tables.shape)} do not match "
+                         f"feat_idx {(CT, D)}")
+    T = CT // n_cells
+    smem = FOREST_QUERY_TILE * T * 4
+    if smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"forest_infer_cells: {T} trees a cell need {smem} "
+                         f"bytes of shared memory (> {MAX_DYNAMIC_SMEM})")
+    out = torch.empty((B, n_cells, Cl), dtype=torch.float32,
+                      device=features.device)
+    launch = _launcher(
+        "forest_infer_cells", features.device, _c(features, torch.float32),
+        B, F, _c(feat_idx, torch.int32), _c(thresh, torch.float32),
+        _c(tables, torch.float32), n_cells, T, D, Cl, out)
+    return launch, out
+
+
 def _prep_knn_browse(centers, leaf_entries, safe_idx, valid):
     B, K = safe_idx.shape
     M = leaf_entries.shape[1]
@@ -352,6 +381,7 @@ _PREP = {"traverse_fused": _prep_traverse_fused,
          "knn_browse": _prep_knn_browse,
          "mlp_predict_compact": _prep_mlp_predict_compact,
          "forest_infer": _prep_forest_infer,
+         "forest_infer_cells": _prep_forest_infer_cells,
          "spatial_key": _prep_spatial_key,
          "delta_probe": _prep_delta_probe,
          "mbr_intersect": _prep_mbr_intersect,
@@ -585,6 +615,23 @@ def forest_infer(features: torch.Tensor, feat_idx: torch.Tensor,
     if not _on_cuda(sel, thresh, tables):
         return ref.forest_infer(sel, thresh, tables)
     launch, out = _prep_forest_infer(sel, thresh, tables)
+    if out.numel():
+        launch()
+    return out
+
+
+def forest_infer_cells(features: torch.Tensor, feat_idx: torch.Tensor,
+                       thresh: torch.Tensor, tables: torch.Tensor,
+                       n_cells: int) -> torch.Tensor:
+    """Celled forests: features [B,F], feat_idx/thresh [C·T,D] (cell c
+    owns trees c·T .. c·T+T-1), tables [C·T,2^D,Cl] → votes [B, C, Cl],
+    each cell's T tree votes summed in tree order (the caller divides by
+    T). On the card the ``[B, C·T, D]`` feature gather never exists."""
+    if not _on_cuda(features, feat_idx, thresh, tables):
+        return ref.forest_infer_cells(features, feat_idx, thresh, tables,
+                                      n_cells)
+    launch, out = _prep_forest_infer_cells(features, feat_idx, thresh,
+                                           tables, n_cells)
     if out.numel():
         launch()
     return out

@@ -198,7 +198,10 @@ def mlp_predict_scores(x: torch.Tensor, cell_ids: torch.Tensor,
                    + b1[ci])
     probs = torch.sigmoid(torch.einsum("bsh,bshl->bsl", h, w2g) + b2[ci])
     lm = label_map[ci].long()                       # [B, S, Cl]
-    ok = slot_ok.to(torch.bool)[:, :, None] & lmask[ci]
+    # a label id outside [0, L) (a bank not yet renamed to a repacked
+    # tree) is dropped, as the reference's scatter and the kernel drop it
+    ok = slot_ok.to(torch.bool)[:, :, None] & lmask[ci] \
+        & (lm >= 0) & (lm < n_leaves)
     tgt = torch.where(ok, lm, n_leaves)             # park invalid at L
     Cl = lm.shape[-1]
     flat_t = tgt.reshape(B, S * Cl)
@@ -242,6 +245,40 @@ def forest_infer(sel: torch.Tensor, thresh: torch.Tensor,
         out = out + tab[t][leaf[:, t]]
     return out
 
+
+
+def forest_infer_percell(sel: torch.Tensor, thresh: torch.Tensor,
+                         tables: torch.Tensor) -> torch.Tensor:
+    """Per-tree votes (no cross-tree sum): sel [B,T,D], thresh [T,D],
+    tables [T,2^D,C] → [B, T, C]."""
+    B, T, D = sel.shape
+    bits = (sel.to(torch.float32) > thresh[None].to(torch.float32))
+    powers = 2 ** torch.arange(D - 1, -1, -1, dtype=torch.int64,
+                               device=sel.device)
+    leaf = torch.sum(bits.long() * powers[None, None, :], dim=-1)   # [B, T]
+    t = torch.arange(T, device=sel.device)
+    return tables.to(torch.float32)[t[None, :], leaf]
+
+
+def forest_infer_cells(features: torch.Tensor, feat_idx: torch.Tensor,
+                       thresh: torch.Tensor, tables: torch.Tensor,
+                       n_cells: int) -> torch.Tensor:
+    """features [B,F], feat_idx/thresh [C·T,D], tables [C·T,2^D,Cl] →
+    votes [B, C, Cl]: each cell's T tree votes summed in tree order, by
+    an explicit loop — the order the TPU kernel's grid (T innermost) and
+    the CUDA kernel accumulate in. Feature indices are clamped into
+    [0, F), as a gather does."""
+    B, F = features.shape
+    CT, D = feat_idx.shape
+    T = CT // n_cells
+    fi = torch.clamp(feat_idx.long(), 0, F - 1)
+    sel = features.to(torch.float32)[:, fi]                    # [B, C·T, D]
+    per = forest_infer_percell(sel, thresh, tables)
+    per = per.reshape(B, n_cells, T, tables.shape[-1])
+    out = per[:, :, 0]
+    for t in range(1, T):
+        out = out + per[:, :, t]
+    return out.contiguous()
 
 def delta_contains(queries: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """queries [B, 4] × buffer points [cap, 2] → [B, cap] bool

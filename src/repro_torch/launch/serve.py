@@ -18,8 +18,19 @@ tier. Each stream closes with an oracle line.
 need only the R-tree. On ``--device cuda`` (the default) every stream
 runs the CUDA kernels of its path; ``--device cpu`` runs their plain
 PyTorch versions. ``--classifier`` picks the AI-tree's bank: ``mlp``
-(the port's default until the engine is ported) or ``knn`` (the
-default of ``repro.launch.serve``).
+(the port's default until the engine is ported), ``knn`` (the default of
+``repro.launch.serve``) or ``forest`` (per-cell oblivious decision trees,
+the paper's classifier family, fit on the host).
+
+Open-loop mode (``--arrival poisson|bursty|trace``, range stream only):
+instead of draining the workload closed-loop, queries are stamped with
+arrival times (``data.arrivals``) and served by the streaming runtime
+(``core.runtime``) under per-query deadlines (``--rate``,
+``--deadline-ms``, pinned to the capacity measured on the device when
+0): continuous Hilbert batch formation with deadline-aware partial
+dispatch and wide-tier gating (``--formation full`` keeps the
+fixed-full-batch baseline). Reports latency p50/p95/p99, goodput and the
+degraded-row accounting, plus the no-drop oracle.
 
 Mixed read/write mode (``--insert-rate r``, range stream only): the last
 ``r`` of the points is held out of the build and staged as inserts
@@ -29,9 +40,11 @@ between query segments (``schedule.serve_mixed_workload`` over a
 cells to the exact R path, ``--repack-every N`` repacks once N points are
 staged, and ``--policy default`` runs the maintenance loop (span-diff
 repacks at ``--repack-at`` of ``--delta-cap``, ``--refit-chunk`` cell
-refits per segment). The oracle checks every query's result count
-against brute-force containment over exactly the points visible to its
-segment, on the stream's device.
+refits per segment; a forest bank has no per-cell refit, so the server
+gets no ``FitState`` and skips the refit chunks, counting them). The
+oracle checks every query's result count against brute-force
+containment over exactly the points visible to its segment, on the
+stream's device.
 """
 from __future__ import annotations
 
@@ -45,12 +58,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import build, device_tree as dt, joins, labels
-from repro_torch.core import knn as knnlib, schedule
+from repro_torch.core import knn as knnlib, runtime, schedule
 from repro_torch.core.geometry import torch_contains_point
 from repro_torch.core.hybrid import HybridTree, hybrid_query, point_query
 from repro_torch.core.monitor import DefaultPolicy, FreshServer
 from repro_torch.core.rtree import RTree
-from repro_torch.data import synth
+from repro_torch.data import arrivals as arrv, synth
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -61,7 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--queries", type=int, default=4096)
     p.add_argument("--selectivity", type=float, default=5e-5)
     p.add_argument("--node-capacity", type=int, default=128)
-    p.add_argument("--classifier", default="mlp", choices=("mlp", "knn"),
+    p.add_argument("--classifier", default="mlp",
+                   choices=("mlp", "knn", "forest"),
                    help="AI-tree bank (repro.launch.serve defaults to "
                         "knn)")
     p.add_argument("--batch", type=int, default=512)
@@ -103,18 +117,40 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(0 = never; buffer must then hold them all)")
     p.add_argument("--delta-cap", type=int, default=8192,
                    help="delta store capacity (points)")
+    p.add_argument("--arrival", default="closed",
+                   choices=("closed", "poisson", "bursty", "trace"),
+                   help="closed = drain the workload as fast as it serves "
+                        "(the throughput harness); anything else stamps "
+                        "arrival times and drives the open-loop runtime "
+                        "(core.runtime) under per-query deadlines")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="open-loop arrival rate, queries/s (0 = auto: "
+                        "1.5x the measured serve capacity)")
+    p.add_argument("--deadline-ms", type=float, default=0.0,
+                   help="per-query deadline from arrival (0 = auto: 6x "
+                        "the measured narrow+wide batch cost)")
+    p.add_argument("--trace", default=None,
+                   help="timestamp file for --arrival trace (.npy or one "
+                        "float per line)")
+    p.add_argument("--formation", default="deadline",
+                   choices=("deadline", "full"),
+                   help="open-loop batch formation: deadline-aware "
+                        "partial dispatch, or fixed-full-batch baseline")
     p.add_argument("--policy", default="none", choices=("none", "default"),
                    help="between-segment maintenance policy: span-diff "
-                        "repacks + stats-driven incremental refit chunks")
+                        "repacks + stats-driven incremental refit chunks "
+                        "(the refit chunks need a per-cell classifier: "
+                        "knn or mlp)")
     p.add_argument("--refit-chunk", type=int, default=4,
                    help="max stale cells retrained per segment decision")
     p.add_argument("--repack-at", type=float, default=0.75,
                    help="policy repacks once the delta buffer passes this "
                         "fill fraction")
     args = p.parse_args(argv)
-    if args.query_type != "range" and args.insert_rate > 0:
-        p.error("--query-type point/knn/join drive the read-only stream "
-                "(no --insert-rate)")
+    if args.query_type != "range" and (args.insert_rate > 0
+                                       or args.arrival != "closed"):
+        p.error("--query-type point/knn/join drive the closed-loop "
+                "read-only stream (no --insert-rate / --arrival)")
     return args
 
 
@@ -256,9 +292,14 @@ def report_stream(report: schedule.ServeReport, dt_s: float,
     L = idx.dtree.n_leaves
     dense_b = report.n_queries * L * 4
     slot_b = report.n_queries * (k + 1) * 4
-    verdict = ("eliminated (fused CUDA prediction kernel)"
-               if idx.dtree.device.type == "cuda" else
-               "still materialized on the CPU (plain PyTorch version)")
+    kind = idx.hybrid.ait.kind
+    if kind != "mlp":
+        verdict = (f"still materialized (the {kind} bank has no fused "
+                   "prediction kernel)")
+    elif idx.dtree.device.type == "cuda":
+        verdict = "eliminated (fused CUDA prediction kernel)"
+    else:
+        verdict = "still materialized on the CPU (plain PyTorch version)"
     print(f"# AI path: {slot_b/1e3:.0f} KB compact slot tables; "
           f"{dense_b/1e6:.1f} MB dense [B, {L}] score tables {verdict}")
     # no-drop oracle: the labelling pass already executed every query
@@ -452,12 +493,16 @@ def make_fresh_server(idx: Index, args: argparse.Namespace
     """The mixed stream's server on the index's device. ``--policy
     default`` turns on the maintenance loop (span-diff repacks and
     incremental ``refit_cells`` chunks between segments) with the build's
-    ``FitState``."""
+    ``FitState``. A forest bank gets no ``FitState``: repack, demote and
+    promote still run, and the server skips the refit chunks, prints its
+    one-time notice and counts the skips on each decision
+    (``MaintenanceDecision.refit_skipped``)."""
     fit_state = policy = None
     if args.policy != "none":
         policy = DefaultPolicy(refit_chunk=args.refit_chunk,
                                repack_at=args.repack_at)
-        fit_state = idx.report.fit_state
+        if idx.hybrid.ait.kind != "forest":
+            fit_state = idx.report.fit_state
     return FreshServer(idx.points, idx.hybrid, delta_cap=args.delta_cap,
                        max_visited=args.max_visited, max_results=512,
                        wide_factor=args.wide_factor, fit_state=fit_state,
@@ -552,6 +597,79 @@ def serve_mixed(idx: Index, extra: np.ndarray, args: argparse.Namespace,
     return mixed, server, dt_s, mism
 
 
+def measure_capacity(narrow_fn: Callable, wide_fn: Callable,
+                     queries: np.ndarray, args: argparse.Namespace
+                     ) -> dict:
+    """Median seconds of one narrow and one wide step on the first
+    ``--batch`` queries (one warm-up call each, then 3 timed calls, the
+    device synchronized before and after each)."""
+    dev = resolve_device(args.device)
+    qb = torch.from_numpy(np.asarray(queries[:args.batch],
+                                     np.float32)).to(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    ts = {}
+    for name, fn in (("narrow", narrow_fn), ("wide", wide_fn)):
+        fn(qb)
+        reps = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            fn(qb)
+            sync()
+            reps.append(time.perf_counter() - t0)
+        ts[name] = float(np.median(reps))
+    return ts
+
+
+def serve_open_loop(narrow_fn: Callable, wide_fn: Callable,
+                    trunc_field: str, wl: labels.Workload,
+                    args: argparse.Namespace
+                    ) -> tuple[runtime.RuntimeReport, int]:
+    """Open-loop serving: stamp arrivals, drive ``runtime.run_stream``,
+    report the latency/goodput/degraded accounting plus the no-drop
+    oracle (every non-degraded row exact against the workload labels).
+    The auto rate and deadline are pinned to the step costs measured on
+    the device (``measure_capacity``). Returns the runtime's report and
+    the oracle's mismatch count."""
+    q = wl.queries
+    ts = measure_capacity(narrow_fn, wide_fn, q, args)
+    cap_qps = args.batch / (ts["narrow"] + ts["wide"])
+    rate = args.rate if args.rate > 0 else 1.5 * cap_qps
+    deadline_s = (args.deadline_ms / 1e3 if args.deadline_ms > 0
+                  else 6.0 * (ts["narrow"] + ts["wide"]))
+    arr = arrv.make_arrivals(args.arrival, q.shape[0], rate,
+                             trace=args.trace)
+    print(f"# open loop: {args.arrival} arrivals at {rate:.0f} qps "
+          f"({rate/cap_qps:.2f}x measured capacity {cap_qps:.0f} qps), "
+          f"deadline {deadline_s*1e3:.1f} ms, formation={args.formation}")
+    rep = runtime.run_stream(
+        narrow_fn, q, arr, batch=args.batch, deadline_s=deadline_s,
+        sort=args.sort, wide_fn=wide_fn, trunc_field=trunc_field,
+        formation=args.formation, device=args.device)
+    lat = rep.telemetry["latency_s"]
+    depth = rep.telemetry["queue_depth"]
+    print(f"# stream: {rep.n_queries} queries in {rep.n_batches} batches "
+          f"(+{rep.n_wide_batches} wide), mean fill "
+          f"{100*rep.mean_fill:.0f}%, queue depth p95 {depth['p95']:.0f}")
+    print(f"# latency: p50 {lat['p50']*1e3:.1f} ms, "
+          f"p95 {lat['p95']*1e3:.1f} ms, p99 {lat['p99']*1e3:.1f} ms")
+    print(f"# goodput: {100*rep.goodput:.1f}% exact-and-on-time "
+          f"({rep.n_missed} missed deadline, {rep.n_degraded} degraded "
+          f"to best-effort narrow — flagged, never dropped)")
+    # no-drop oracle: every query completed after it arrived, and every
+    # non-degraded row's count matches the labelling pass exactly
+    if not np.all(rep.done_s > rep.arrival_s):
+        raise RuntimeError("a query completed before it arrived")
+    got = np.asarray(rep.stats.n_results)
+    ok = ~rep.degraded
+    mism = int(np.sum(got[ok] != wl.n_results[ok]))
+    print(f"# oracle: 0 dropped; {mism} / {int(ok.sum())} "
+          f"non-degraded n_results mismatches vs workload labels"
+          + (f"; {rep.n_degraded} degraded rows carry their truncation "
+             f"flag" if rep.n_degraded else ""))
+    return rep, mism
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.query_type in ("knn", "join"):     # the R-tree is all they need
@@ -565,6 +683,10 @@ def main(argv=None) -> None:
         return
     if idx.extra is not None:
         serve_mixed(idx, idx.extra, args)
+        return
+    if args.arrival != "closed":
+        narrow_fn, wide_fn, trunc_field = make_serve_fns(idx.hybrid, args)
+        serve_open_loop(narrow_fn, wide_fn, trunc_field, idx.workload, args)
         return
     report, dt_s = serve_stream(idx.hybrid, idx.workload, args)
     report_stream(report, dt_s, idx)

@@ -148,3 +148,19 @@ def near_radius_rows(pts, q, radii):
         print(f"rows within 1 ulp of r² (reported, not compared): "
               f"{sorted(rows)}")
     return sorted(rows)
+
+
+def forest_cells_inputs(rng, B, C, T, D, Cl, F=6):
+    """Celled-forest inputs ``(features [B, F], feat_idx [C·T, D],
+    thresh [C·T, D], tables [C·T, 2^D, Cl])``: feature ids at both ends
+    of [0, F), cell 1 empty (``thresh = +inf``: every query takes leaf
+    0), and query 0 exactly on its first threshold (not greater)."""
+    feats = rng.uniform(-1, 1, (B, F)).astype(np.float32)
+    fi = rng.integers(0, F, (C * T, D)).astype(np.int32)
+    fi[0, 0], fi[-1, -1] = 0, F - 1
+    th = rng.uniform(-1, 1, (C * T, D)).astype(np.float32)
+    th[T:2 * T] = np.inf
+    if B:
+        feats[0, fi[0, 0]] = th[0, 0]
+    tb = rng.uniform(0, 1, (C * T, 2 ** D, Cl)).astype(np.float32)
+    return feats, fi, th, tb

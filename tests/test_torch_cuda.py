@@ -26,8 +26,8 @@ from repro_torch.kernels import cuda as kcuda, ops, ref  # noqa: E402
 # pytest puts tests/ on sys.path (it has no __init__.py); the card's
 # environment may carry another top-level ``tests`` package
 from helpers.torch_inputs import (  # noqa: E402
-    delta_inputs, edge_bank, edge_queries, key_centres, knn_inputs, levels,
-    rects)
+    delta_inputs, edge_bank, edge_queries, forest_cells_inputs, key_centres,
+    knn_inputs, levels, rects)
 
 pytestmark = pytest.mark.gpu
 
@@ -97,6 +97,57 @@ def test_forest_infer_kernel(cuda):
     got = _launched("forest_infer", lambda: ops.forest_infer(*args))
     want = ref.forest_infer(args[0][:, args[1].long()], args[2], args[3])
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("D", [1, 8])
+@pytest.mark.parametrize("Cl", [1, 37])
+def test_forest_infer_cells_kernel(cuda, T, D, Cl):
+    """Bit-equal votes (tree order in both) with 77 queries (not a
+    multiple of the 32-query tile), an empty cell and a feature exactly
+    on its threshold; one launch, and none for an empty batch."""
+    rng = np.random.default_rng(T + 10 * D + 100 * Cl)
+    args = [_g(a, cuda) for a in forest_cells_inputs(rng, 77, 6, T, D, Cl)]
+    got = _launched("forest_infer_cells",
+                    lambda: ops.forest_infer_cells(*args, n_cells=6))
+    assert torch.equal(got, ref.forest_infer_cells(*args, 6))
+    before = kcuda.KERNELS["forest_infer_cells"].launches
+    empty = ops.forest_infer_cells(args[0][:0], *args[1:], n_cells=6)
+    assert tuple(empty.shape) == (0, 6, Cl)
+    assert kcuda.KERNELS["forest_infer_cells"].launches == before
+
+
+def test_forest_bank_cuda_equals_cpu(cuda):
+    """The port's forest build on the card and on the CPU: the same bank
+    (host fit), ``cell_probs_dense`` through the kernel bit-equal to the
+    gathered form over every cell, and every ``hybrid_query`` field of
+    the range stream equal."""
+    from repro_torch.core import build, device_tree as dt, labels
+    from repro_torch.core.classifiers import forest
+    from repro_torch.core.hybrid import hybrid_query
+    from repro_torch.core.rtree import RTree
+    from repro_torch.data import synth
+    pts = synth.tweets_like(3000, seed=0)
+    qs = synth.synth_queries(pts, 2e-4, 200, seed=1)
+    out = {}
+    for dev in ("cpu", cuda):
+        tree = dt.flatten(RTree(max_entries=32).insert_all(pts), device=dev)
+        hyb, _ = build.fit_airtree(tree, labels.make_workload(tree, qs),
+                                   kind="forest", grid_sizes=(6,))
+        q = torch.from_numpy(qs).to(dev)
+        out[str(dev)] = (hyb, hybrid_query(hyb, q, max_visited=4,
+                                           max_results=256))
+    (ch, cr), (gh, gr) = out["cpu"], out[str(cuda)]
+    assert torch.equal(ch.ait.bank.tables, gh.ait.bank.tables.cpu())
+    for f in cr._fields:
+        assert torch.equal(getattr(cr, f), getattr(gr, f).cpu()), f
+    bank = gh.ait.bank
+    q = torch.from_numpy(qs).to(cuda)
+    dense = _launched("forest_infer_cells",
+                      lambda: forest.cell_probs_dense(bank, q))
+    ids = torch.arange(bank.n_cells, dtype=torch.int32,
+                       device=cuda).expand(q.shape[0], -1)
+    assert torch.equal(dense, forest.cell_probs_for(bank, q, ids))
 
 
 def test_mlp_predict_compact_kernel(cuda):
