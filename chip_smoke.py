@@ -10,7 +10,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each failing the run (non-zero exit) on its own error:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the twelve CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the thirteen CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. build the serving index through ``repro_torch.launch.serve`` at the
    Chicago Crimes scale of the paper (872K points, node capacity 128,
@@ -72,7 +72,19 @@ Phases, each failing the run (non-zero exit) on its own error:
    1e-6); gates: traverse_compact_sliced launched, no full walk, oracles
    at 0 mismatches, at least 200 of 256 sampled join rows not truncated;
    time traverse_compact_sliced on the kNN stream's first batch;
-12. print the ``kernels:`` line, the serving rates beside the card, the
+12. the rwkv6-3b serving path at the published width (32 layers, d_model
+   2560, 40 heads of 64, d_ff 8960, vocab 65536; ``init_params`` in bf16
+   from ``torch.Generator`` seed 0, on the card): ``forward`` at [1, 32768]
+   and [8, 4096] (cut from prefill_32k's batch 32: the full logits would
+   take 137 GB), each with its launch counts reset and read around one
+   forward (gates: 32 wkv6 launches, finite logits), tokens/s, device ms
+   and wkv6 ms per launch beside its bound; wkv6 against its plain
+   version (rtol = atol = 5e-4) on layer 0's real inputs and on T 33 and
+   4097, decay in [1e-8, 0.1], w = 0 rows and bf16 inputs; decode against
+   forward with f32 weights on a [4, 256] prompt (rel < 2e-2); greedy
+   decode at batch 128 (16 prompt + 32 tokens; gates: finite logits, 0
+   wkv6 launches);
+13. print the ``kernels:`` line, the serving rates beside the card, the
    per-kernel JSON line, and the contract's last line.
 
 It imports neither JAX nor the JAX package, and refuses to run without a
@@ -151,11 +163,13 @@ def cuda_events(prof, match: str | None = None) -> list:
 def device_ms(fn, match: str | None = None,
               reps: int = TIMING_REPS) -> tuple[float, str]:
     """Device time per call of ``fn()``: the summed CUPTI durations
-    (``torch.profiler``) of the device work it issues — only kernels
-    whose name contains ``match`` when given — over ``reps`` calls.
-    A profile that recorded no matching activity is taken once more;
-    after two empty ones it falls back to ``event_ms``. The second value
-    names the source."""
+    (``torch.profiler``) of the device work it issues over ``reps``
+    calls. With ``match``, ``fn`` launches one kernel whose name contains
+    it, and the time is the mean over the launches the profile recorded
+    (it can miss some of a run of long launches; the source then says
+    how many it kept). A profile that recorded no matching activity is
+    taken once more; after two empty ones it falls back to ``event_ms``.
+    The second value names the source."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -168,8 +182,10 @@ def device_ms(fn, match: str | None = None,
             torch.cuda.synchronize()
         ev = cuda_events(prof, match)
         if ev:
-            return (sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3,
-                    "cupti")
+            n = reps if match is None else len(ev)
+            src = "cupti" if n == reps else \
+                f"cupti, {n} of {reps} launches recorded"
+            return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3, src
     return event_ms(fn, reps), "cuda-events"
 
 
@@ -185,15 +201,20 @@ def kernel_row(name, mism, launch, plain, n_bytes, n_ops,
     (``plain_reps`` calls for a plain version of thousands of launches),
     print them beside the bound, and return the kernel's JSON row (launch
     count filled in later)."""
-    from repro_torch.kernels import cuda as kcuda
     b, by = bound_ms(n_bytes, n_ops)
-    k = kcuda.KERNELS[name]
     ms, src = device_ms(launch, f"{name}_kernel")
     plain_ms, psrc = device_ms(plain, reps=plain_reps)
     print(f"  {name}{label}: {mism} mismatches, kernel {ms:.4f} ms ({src}; "
           f"{event_ms(launch):.4f} ms between events), plain "
           f"{plain_ms:.4f} ms ({psrc}; {event_ms(plain, plain_reps):.4f} "
           f"ms between events), bound {b:.4f} ms ({by})")
+    return json_row(name, ms, plain_ms, b, by, max_abs_err)
+
+
+def json_row(name, ms, plain_ms, b, by, max_abs_err) -> dict:
+    """A kernel's row of the JSON line (launch count filled in later)."""
+    from repro_torch.kernels import cuda as kcuda
+    k = kcuda.KERNELS[name]
     return {"name": name, "route": "cuda",
             "source": str(k.source.relative_to(ROOT)),
             "replaces": k.replaces, "launches": 0,
@@ -1319,6 +1340,284 @@ def open_loop_phase(idx, base_argv, dev):
     return counts, summary
 
 
+# rwkv6-3b: the LM serving path at the published width
+RWKV_PREFILL = ((1, 32768), (8, 4096))   # cut from prefill_32k's [32, 32768]
+RWKV_DECODE_BATCH = 128                  # decode_32k's batch
+RWKV_DECODE_PROMPT, RWKV_DECODE_TOKENS = 16, 32
+RWKV_CHECK = (4, 256)                    # decode-vs-forward prompt
+WKV6_TOL = 5e-4                          # the reference's (test_kernels.py)
+
+
+def wkv6_work(BH: int, T: int, dk: int, dv: int, chunk: int
+              ) -> tuple[int, int]:
+    """Bytes and operations one wkv6 call needs. Bytes: r, k, w, v read
+    once and y written once, f32 (u is BH·dk). Operations, per chunk of
+    n steps and row: the strictly causal scores, n(n-1)/2 · dk (subtract,
+    exp, multiply, multiply-add: 5), their product with v (2 · n(n-1)/2 ·
+    dv), the inter-chunk and state products (2 · n·dk·dv each), and the
+    bonus (3 n·dk) — counting the T steps, not the padded ones."""
+    n_bytes = 4 * (BH * T * (3 * dk + 2 * dv) + BH * dk)
+    ops = 0
+    for n in [chunk] * (T // chunk) + ([T % chunk] if T % chunk else []):
+        pairs = n * (n - 1) // 2
+        ops += pairs * dk * 5 + 2 * pairs * dv + 4 * n * dk * dv + 3 * n * dk
+    return n_bytes, BH * ops
+
+
+def wkv6_err(got, want) -> tuple[float, bool]:
+    """Max |got - want| and whether every element is within
+    ``WKV6_TOL + WKV6_TOL·|want|`` (and finite)."""
+    import torch
+    diff = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and \
+        bool((diff <= WKV6_TOL + WKV6_TOL * want.abs()).all())
+    return float(diff.max()), ok
+
+
+def wkv6_checks(cfg, params, toks_by_path, dev):
+    """The kernel against its plain version: the ``ops.wkv6`` wrapper
+    (the call ``rwkv_time_mix`` makes) on layer 0's real r, k, v, w, u
+    from each prefill shape, and on synthetic edge cases at dk = dv = 64.
+    Returns the kernel's JSON row, timed at the longest prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ssm, transformer as tf
+    from repro_torch.models.layers import rmsnorm
+    lp = tf.layer(params, 0)
+    # shortest T first: its plain scan warms the one that is timed
+    for path, toks in sorted(toks_by_path.items(),
+                             key=lambda kv: kv[1].shape[1]):
+        with torch.no_grad():
+            h = rmsnorm(params["embed"][toks], lp["norm1"], cfg.norm_eps)
+            zeros = torch.zeros((toks.shape[0], cfg.d_model),
+                                dtype=h.dtype, device=dev)
+            r, k, v, w, u, _ = ssm.rwkv_wkv_inputs(cfg, lp, h, zeros)
+            args = (r.float(), k.float(), v.float(), w, u)
+            del h, r, k, v
+        y = ops.wkv6(*args)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = ref.wkv6(*args)
+        b.record()
+        b.synchronize()
+        plain_ms = a.elapsed_time(b)
+        BH, T, dk = args[0].shape
+        err, ok = wkv6_err(y, want)
+        mism = int((~torch.isclose(y, want, rtol=WKV6_TOL,
+                                   atol=WKV6_TOL)).sum())
+        print(f"  wkv6 (ops.wkv6 on layer 0 of the {path} forward, BH {BH}, "
+              f"dk {dk}): max |kernel - plain| {err:.3e} (max |y| "
+              f"{float(want.abs().max()):.3f}), tolerance {WKV6_TOL} + "
+              f"{WKV6_TOL}·|y|: {'held' if ok else 'BROKEN'}; plain "
+              f"{plain_ms:.4f} ms (one call between events)")
+        check(ok, f"wkv6 on layer 0 of the {path} forward: max error {err}")
+        del y, want
+    rng = np.random.default_rng(0)
+    for label, T_, lo, hi, zero, dt in (
+            ("T 33", 33, 0.05, 0.999, False, torch.float32),
+            ("T 4097", 4097, 0.05, 0.999, False, torch.float32),
+            ("decay in [1e-8, 0.1]", 1000, 1e-8, 0.1, False, torch.float32),
+            ("w = 0 rows", 1000, 0.05, 0.999, True, torch.float32),
+            ("bf16 inputs", 1000, 0.05, 0.999, False, torch.bfloat16)):
+        a = [rng.normal(size=(8, T_, 64)).astype(np.float32)
+             for _ in range(3)]
+        a.append(rng.uniform(lo, hi, (8, T_, 64)).astype(np.float32))
+        a.append(rng.normal(size=(8, 64)).astype(np.float32))
+        if zero:
+            a[3][0, 70] = 0.0
+            a[3][1, 5, :7] = 0.0
+            a[3][2, 127] = 0.0
+        e = [torch.from_numpy(x).to(dev).to(dt) for x in a]
+        got = ops.wkv6(*e)
+        want = ref.wkv6(*e)
+        err_, ok_ = wkv6_err(got, want)
+        print(f"  wkv6 ({label}, BH 8, dk = dv = 64): max |kernel - plain| "
+              f"{err_:.3e} (max |y| {float(want.abs().max()):.3f}): "
+              f"{'held' if ok_ else 'BROKEN'}")
+        check(ok_, f"wkv6 ({label}): max error {err_}")
+    # the longest prefill's inputs: the kernel alone, beside the plain
+    # version timed above
+    launch, _ = ops.prepare("wkv6", *args, ops.WKV6_CHUNK)
+    b, by = bound_ms(*wkv6_work(BH, T, dk, dk, ops.WKV6_CHUNK))
+    ms, src = device_ms(launch, "wkv6_kernel")
+    print(f"  wkv6 (layer 0 of the {path} forward): {mism} mismatches, "
+          f"kernel {ms:.4f} ms ({src}; {event_ms(launch):.4f} ms between "
+          f"events), plain {plain_ms:.4f} ms (one call between events: "
+          f"~10^5 launches, too many to profile), bound {b:.4f} ms ({by})")
+    return json_row("wkv6", ms, plain_ms, b, by, err)
+
+
+def rwkv_phase(dev, card):
+    """Phase 12: the rwkv6-3b serving path at the published width
+    (``configs/rwkv6_3b.py``), weights from ``init_params`` (bf16,
+    ``torch.Generator`` seed 0, on the card). Prefill ``forward`` at each
+    ``RWKV_PREFILL`` shape (32 wkv6 launches, finite logits, tokens/s,
+    device ms, wkv6 ms per launch beside its bound); the kernel against
+    its plain version; decode against forward in f32 (rel < 2e-2); greedy
+    decode at batch 128 (no wkv6 launch). Returns ``(launch counts by
+    path, the summary, the wkv6 JSON row)``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.kernels import cuda as kcuda, ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import decode, kvcache
+    t_all = time.time()
+    cfg = configs.get_config("rwkv6_3b")
+    L = cfg.n_layers
+    t0 = time.time()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    tensors = [params["embed"], params["final_norm"], params["lm_head"],
+               *params["layers"].values()]
+    n_par = sum(t.numel() for t in tensors)
+    print(f"# rwkv6-3b: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.d_model // cfg.n_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}; {n_par} parameters (config n_params "
+          f"{cfg.n_params()}), {sum(t.numel() * t.element_size() for t in tensors) / 1e9:.3f} "
+          f"GB bf16 on the card, drawn in {time.time()-t0:.1f}s")
+    print("# rwkv6-3b CUT: prefill at [1, 32768] and [8, 4096] instead of "
+          "prefill_32k's [32, 32768]: forward returns the full [B, S, 65536] "
+          "logits, 137 GB in bf16 at batch 32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    counts, summary = {}, {}
+    toks_by_path = {}
+    for Bp, Sp in RWKV_PREFILL:
+        path = f"prefill [{Bp}, {Sp}]"
+        toks = torch.randint(0, cfg.vocab, (Bp, Sp), generator=gen,
+                             device=dev)
+        with torch.no_grad():
+            def run():
+                return tf.forward(cfg, params, {"tokens": toks})
+            run()
+            torch.cuda.synchronize()
+            kcuda.reset_launch_counts()
+            logits = run()
+            torch.cuda.synchronize()
+            counts[path] = kcuda.launch_counts()
+            finite = bool(torch.isfinite(logits).all())
+            shape = tuple(logits.shape)
+            del logits
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        print(f"# launches over one {path} forward: "
+              f"{ {n: c for n, c in counts[path].items() if c} }")
+        check(counts[path]["wkv6"] == L, f"{path}: wkv6 launched "
+              f"{counts[path]['wkv6']} times, not once per layer ({L})")
+        check(finite, f"{path}: logits not finite")
+        check(shape == (Bp, Sp, cfg.vocab_padded), f"{path}: logits {shape}")
+        ev = cuda_events(prof)
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        wk = [e.time_range.elapsed_us() / 1e3 for e in ev
+              if "wkv6_kernel" in e.name]
+        b, by = bound_ms(*wkv6_work(Bp * cfg.n_heads, Sp, 64, 64,
+                                    ops.WKV6_CHUNK))
+        wk_ms = sum(wk) / max(len(wk), 1)
+        summary[path] = (f"{Bp * Sp / wall:.0f} tokens/s, {wall * 1e3:.1f} "
+                         f"ms wall, device {busy:.1f} ms per forward "
+                         f"(wkv6 {wk_ms:.4f} ms x {len(wk)} = "
+                         f"{100 * sum(wk) / max(busy, 1e-9):.1f}% of it)")
+        print(f"# rwkv6-3b {path} on {card}: {summary[path]}; wkv6 bound "
+              f"{b:.4f} ms ({by}); {len(ev)} device activities")
+        top: dict = {}
+        for e in ev:
+            top[e.name] = top.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+        for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"    {ms:9.3f} ms  {name[:100]}")
+        toks_by_path[path] = toks
+
+    print("# wkv6 vs its plain version on the card (tolerance rtol = atol "
+          f"= {WKV6_TOL}, the reference's; f32, another order of sums):")
+    row = wkv6_checks(cfg, params, toks_by_path, dev)
+    del toks_by_path
+
+    # decode against forward at full width, f32 weights (TF32 off)
+    t0 = time.time()
+    p32 = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    Bc, Sc = RWKV_CHECK
+    toks = torch.randint(0, cfg.vocab, (Bc, Sc), generator=gen, device=dev)
+    with torch.no_grad():
+        fwd = tf.forward(cfg, p32, {"tokens": toks})[:, -1].clone()
+        last, _ = decode.prefill_via_decode(
+            cfg, p32, kvcache.make_cache(cfg, Bc, Sc, dtype=torch.float32,
+                                         device=dev), toks)
+    torch.cuda.synchronize()
+    rel = float((last - fwd).abs().max()) / (float(fwd.abs().max()) + 1e-9)
+    same = int((last.argmax(-1) == fwd.argmax(-1)).sum())
+    summary["decode vs forward"] = (f"rel {rel:.3e}, argmax equal on "
+                                    f"{same}/{Bc} rows")
+    print(f"# rwkv6-3b decode vs forward (f32 weights, [{Bc}, {Sc}] "
+          f"prompt, last position): {summary['decode vs forward']} "
+          f"({time.time()-t0:.1f}s)")
+    check(rel < 2e-2, f"rwkv6-3b decode diverges from forward: rel {rel}")
+    del p32, fwd, last
+
+    # greedy decode at decode_32k's batch (bf16 weights and cache)
+    Bd = RWKV_DECODE_BATCH
+    prompt = torch.randint(0, cfg.vocab, (Bd, RWKV_DECODE_PROMPT),
+                           generator=gen, device=dev)
+    cache = kvcache.make_cache(cfg, Bd, 32768, dtype=torch.bfloat16,
+                               device=dev)
+    with torch.no_grad():
+        kcuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = decode.prefill_via_decode(cfg, params, cache, prompt)
+        torch.cuda.synchronize()
+        t_prompt = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        t0 = time.perf_counter()
+        for _ in range(RWKV_DECODE_TOKENS):
+            tok = logits.argmax(-1, keepdim=True)
+            logits, cache = decode.decode_step(cfg, params, cache, tok)
+            finite &= bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        counts["decode"] = kcuda.launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode.decode_step(cfg, params, cache, tok)
+            torch.cuda.synchronize()
+            step_wall = (time.perf_counter() - t0) * 1e3
+    ev = cuda_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    top = {}
+    for e in ev:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    print(f"# profile of one rwkv6-3b decode step at batch {Bd} (CUPTI): "
+          f"wall {step_wall:.2f} ms, device busy {busy:.3f} ms (idle "
+          f"{100 - 100 * busy / step_wall:.1f}%), {len(ev)} device "
+          "activities")
+    for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {ms:8.3f} ms  {name[:100]}")
+    check(finite, "rwkv6-3b decode: logits not finite")
+    check(counts["decode"]["wkv6"] == 0,
+          f"rwkv6-3b decode launched wkv6 {counts['decode']['wkv6']} times")
+    check(int(cache["pos"]) == RWKV_DECODE_PROMPT + RWKV_DECODE_TOKENS,
+          f"rwkv6-3b decode: cache pos {int(cache['pos'])}")
+    summary["decode"] = (
+        f"batch {Bd}: {Bd * RWKV_DECODE_TOKENS / t_dec:.0f} tokens/s over "
+        f"{RWKV_DECODE_TOKENS} greedy steps ({1e3 * t_dec / RWKV_DECODE_TOKENS:.2f} "
+        f"ms a step, host clock to a synchronize; the {RWKV_DECODE_PROMPT}-token "
+        f"prompt {t_prompt:.2f}s), cache {kvcache.cache_bytes(cache) / 1e9:.3f} "
+        f"GB, 0 wkv6 launches")
+    print(f"# rwkv6-3b decode on {card}: {summary['decode']}")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    print(f"# rwkv6-3b phase: {time.time()-t_all:.1f}s")
+    return counts, summary, row
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of repro_torch")
     p.add_argument("--points", type=int, default=POINTS,
@@ -1463,6 +1762,11 @@ def main(argv=None) -> int:
     counts["join (large index)"] = large["join"]
     rows.append(large_row)
 
+    # -- the rwkv6-3b serving path: prefill forward (wkv6) and decode
+    rcounts, rwkv, wkv6_row = rwkv_phase(dev, card)
+    counts.update(rcounts)
+    rows.append(wkv6_row)
+
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -1482,6 +1786,8 @@ def main(argv=None) -> int:
           f"{open_loop['full']} ({opts.points} points, batch {args.batch}); "
           f"on the {opts.large_points}-point index knn {large_rates['knn']}, "
           f"join {large_rates['join']}")
+    print(f"# rwkv6-3b on {card}: " + "; ".join(
+        f"{path} {v}" for path, v in rwkv.items()))
     print(f"# smoke finished in {time.time()-t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,9 @@ ancestor table, the grid,
 across (host numpy, lists of ``bytes`` and ``frozenset``s), so a port
 ``FreshServer`` can run the maintenance loop on the same fitted world.
 The tests use both to run the two packages side by side.
+``lm_params_from_reference`` / ``lm_cache_from_reference`` carry a
+reference LM parameter or decode-cache pytree (nested dicts) across,
+dtype for dtype.
 """
 from __future__ import annotations
 
@@ -143,3 +146,34 @@ def fit_state_from_reference(state) -> FitState:
         target_fit=float(state.target_fit), seed=int(state.seed),
         label_kwargs={k: v for k, v in state.label_kwargs.items()
                       if k != "use_kernel"})
+
+
+def _lm_tensor(a, dev: torch.device) -> torch.Tensor:
+    """One array of an LM pytree, its dtype kept. numpy's bfloat16 (the
+    ``ml_dtypes`` type JAX hands out) is not a dtype ``torch.from_numpy``
+    takes: its bits go across as uint16 and are viewed back."""
+    arr = np.array(a, order="C")               # a writable copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
+
+
+def _lm_tree(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _lm_tree(v, dev) for k, v in tree.items()}
+    return _lm_tensor(tree, dev)
+
+
+def lm_params_from_reference(params, device: str | torch.device = "cuda"
+                             ) -> dict:
+    """A reference ``init_params`` pytree → the port's dict of tensors on
+    ``device`` (same names, shapes and dtypes)."""
+    return _lm_tree(params, resolve_device(device))
+
+
+def lm_cache_from_reference(cache, device: str | torch.device = "cuda"
+                            ) -> dict:
+    """A reference decode cache (``make_cache``, or one a decode step
+    returned) → the port's, on ``device``; ``pos`` stays a 0-d int32."""
+    return _lm_tree(cache, resolve_device(device))

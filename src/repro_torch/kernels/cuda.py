@@ -184,6 +184,10 @@ KERNELS = {
         "forest_infer_cells", "forest_infer_cells_launch",
         [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
         "src/repro/kernels/forest_infer.py:85"),
+    "wkv6": Kernel(
+        "wkv6", "wkv6_launch",
+        [_P] * 5 + [_I] * 6 + [_P, _P],
+        "src/repro/kernels/wkv6.py:82"),
 }
 
 

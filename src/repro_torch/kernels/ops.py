@@ -48,6 +48,8 @@ SLICED_QUERY_TILE = 8           # kQT in csrc/traverse_fused_sliced.cu
 COMPACT_SLICED_QUERY_TILE = 4   # kQT in csrc/traverse_compact_sliced.cu
 DELTA_QUERY_TILE = 4      # kQT in csrc/delta_probe.cu
 FOREST_QUERY_TILE = 32    # kQT in csrc/forest_infer_cells.cu
+WKV6_CHUNK = 64           # the reference's DEF_CHUNK (kernels/wkv6.py)
+WKV6_DV_SLICE = 32        # kDvs in csrc/wkv6.cu: v / y / state columns a CTA
 CURVES = {"morton": 0, "hilbert": 1}
 # Shared memory one CTA may ask for on sm_90 (232,448 bytes, less room
 # for the kernels' static shared memory).
@@ -375,6 +377,38 @@ def _prep_delta_probe(queries, pts, k):
     return launch, (idx, cnt)
 
 
+def wkv6_smem(dk: int, chunk: int) -> int:
+    """Shared memory of one wkv6 CTA, the one formula of its layout (the
+    launcher takes it as given): the (r, cum) and (k, cum_inc) float2 rows
+    padded to dk + 1, the v slice, the [C, C + 1] scores, the state slice,
+    the bonus, u and exp(total)."""
+    dvs = WKV6_DV_SLICE
+    return 4 * (4 * chunk * (dk + 1) + chunk * dvs + chunk * (chunk + 1)
+                + dk * dvs + chunk + 2 * dk)
+
+
+def _prep_wkv6(r, k, v, w, u, chunk):
+    BH, T, dk = r.shape
+    dv = v.shape[-1]
+    if tuple(k.shape) != (BH, T, dk) or tuple(w.shape) != (BH, T, dk) or \
+            tuple(v.shape[:2]) != (BH, T) or tuple(u.shape) != (BH, dk):
+        raise ValueError(f"wkv6: r {tuple(r.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, w {tuple(w.shape)}, "
+                         f"u {tuple(u.shape)} do not match")
+    if chunk <= 0 or chunk % 4 or T % chunk:
+        raise ValueError(f"wkv6: chunk {chunk} must be a positive multiple "
+                         f"of 4 that divides T={T}")
+    smem = wkv6_smem(dk, chunk)
+    if smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"wkv6: dk {dk}, chunk {chunk} need {smem} bytes "
+                         f"of shared memory (> {MAX_DYNAMIC_SMEM})")
+    y = torch.empty((BH, T, dv), dtype=torch.float32, device=r.device)
+    launch = _launcher(
+        "wkv6", r.device, *(_c(a, torch.float32) for a in (r, k, v, w, u)),
+        BH, T, dk, dv, chunk, smem, y)
+    return launch, y
+
+
 _PREP = {"traverse_fused": _prep_traverse_fused,
          "traverse_compact": _prep_traverse_compact,
          "leaf_refine": _prep_leaf_refine,
@@ -386,7 +420,8 @@ _PREP = {"traverse_fused": _prep_traverse_fused,
          "delta_probe": _prep_delta_probe,
          "mbr_intersect": _prep_mbr_intersect,
          "traverse_fused_sliced": _prep_traverse_fused_sliced,
-         "traverse_compact_sliced": _prep_traverse_compact_sliced}
+         "traverse_compact_sliced": _prep_traverse_compact_sliced,
+         "wkv6": _prep_wkv6}
 
 
 def prepare(name: str, *args):
@@ -635,3 +670,32 @@ def forest_infer_cells(features: torch.Tensor, feat_idx: torch.Tensor,
     if out.numel():
         launch()
     return out
+
+
+def pad_time(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, chunk: int):
+    """Pad T of r, k, v, w ``[BH, T, ·]`` to a multiple of ``chunk`` with
+    identity steps (``w = 1``, ``k = r = v = 0``): the state passes them
+    unchanged and their outputs are sliced off."""
+    pad = (-r.shape[1]) % chunk
+    if not pad:
+        return r, k, v, w
+
+    def ext(a, value):
+        return torch.nn.functional.pad(a, (0, 0, 0, pad), value=value)
+    return ext(r, 0.0), ext(k, 0.0), ext(v, 0.0), ext(w, 1.0)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, chunk: int = WKV6_CHUNK) -> torch.Tensor:
+    """RWKV-6 scan: r/k/w [BH,T,dk], v [BH,T,dv], u [BH,dk] → y [BH,T,dv]
+    float32. On the card the chunked kernel over T padded to a multiple of
+    ``chunk``; on the CPU the sequential plain version."""
+    if not _on_cuda(r, k, v, w, u):
+        return ref.wkv6(r, k, v, w, u)
+    T = r.shape[1]
+    r, k, v, w, u = (a.to(torch.float32) for a in (r, k, v, w, u))
+    launch, y = _prep_wkv6(*pad_time(r, k, v, w, chunk), u, chunk)
+    if y.numel():
+        launch()
+    return y[:, :T]

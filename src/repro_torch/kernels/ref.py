@@ -294,3 +294,27 @@ def delta_probe(queries: torch.Tensor, pts: torch.Tensor, k: int
     positions in buffer (= insertion) order and the full hit count."""
     from repro_torch.core.traversal import compact_mask_counted
     return compact_mask_counted(delta_contains(queries, pts), k)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor) -> torch.Tensor:
+    """Sequential RWKV-6 scan, in float32, batched over BH.
+
+    r/k/w: [BH, T, dk], v: [BH, T, dv], u: [BH, dk] → y [BH, T, dv]
+        y_t = r_t · (S_{t-1} + (u ⊙ k_t) v_tᵀ)
+        S_t = diag(w_t) S_{t-1} + k_t v_tᵀ,    S_0 = 0
+
+    The definition the chunked CUDA kernel is held to (the reference's
+    ``ref.wkv6``): a decay of exactly 0 resets the state here, where the
+    reference's chunked TPU kernel gives NaN.
+    """
+    r, k, v, w, u = (a.to(torch.float32) for a in (r, k, v, w, u))
+    BH, T, dk = r.shape
+    dv = v.shape[-1]
+    S = torch.zeros((BH, dk, dv), dtype=torch.float32, device=r.device)
+    y = torch.empty((BH, T, dv), dtype=torch.float32, device=r.device)
+    for t in range(T):
+        kv = k[:, t, :, None] * v[:, t, None, :]              # [BH, dk, dv]
+        y[:, t] = torch.einsum("nd,nde->ne", r[:, t], S + u[:, :, None] * kv)
+        S = w[:, t, :, None] * S + kv
+    return y

@@ -9,8 +9,9 @@ collects and skips. On the card run it with
 The inputs are the edge-row sets of ``tests/test_torch_kernels.py``
 (which holds the plain versions against the JAX package; the inputs
 live in ``tests/helpers/torch_inputs.py``), moved to the
-card; the kernels must agree bit for bit, and each call must launch its
-kernel once. The walk ladder's rungs are driven through ``traversal``
+card; the kernels must agree bit for bit (``wkv6`` to the reference's
+float tolerance, see its section), and each call must launch its kernel
+once. The walk ladder's rungs are driven through ``traversal``
 with ``ops.MAX_DYNAMIC_SMEM`` lowered inside the test (``monkeypatch``),
 so small trees take each rung.
 """
@@ -428,3 +429,81 @@ def test_walk_probe_runs(cuda, capsys):
     for name in ("traverse_compact_sliced", "traverse_fused_sliced",
                  "mbr_intersect"):
         assert name in out
+
+
+# ---------------------------------------------------------------------------
+# wkv6 (the rwkv6 scan): a tolerance, not bits — the chunked kernel and the
+# sequential plain version add the same float32 terms in another order.
+# rtol = atol = 5e-4 is the reference's own (tests/test_kernels.py).
+# ---------------------------------------------------------------------------
+
+def _wkv6_args(dev, seed, BH, T, dk, dv, lo=0.05, hi=0.999):
+    rng = np.random.default_rng(seed)
+    r, k = (rng.normal(size=(BH, T, dk)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(BH, T, dv)).astype(np.float32)
+    w = rng.uniform(lo, hi, size=(BH, T, dk)).astype(np.float32)
+    u = rng.normal(size=(BH, dk)).astype(np.float32)
+    return [_g(a, dev) for a in (r, k, v, w, u)]
+
+
+def _wkv6_close(got, want):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("BH,T,dk,dv,chunk", [
+    (1, 16, 8, 8, 16), (3, 64, 8, 16, 16), (2, 48, 16, 16, 16),
+    (1, 33, 8, 8, 16), (2, 128, 32, 32, 64),     # the reference's table
+    (2, 97, 64, 64, 64), (3, 200, 16, 40, 64),   # padded T; dv past a slice
+    (40, 4096, 64, 64, 64),                      # rwkv6-3b, batch 1
+    (320, 4096, 64, 64, 64),                     # rwkv6-3b, batch 8
+])
+def test_wkv6_kernel(cuda, BH, T, dk, dv, chunk):
+    args = _wkv6_args(cuda, BH * T + dv, BH, T, dk, dv)
+    got = _launched("wkv6", lambda: ops.wkv6(*args, chunk=chunk))
+    _wkv6_close(got, ref.wkv6(*args))
+
+
+@pytest.mark.parametrize("case", ["extreme", "zero", "bf16"])
+def test_wkv6_kernel_decay_edges(cuda, case):
+    """Decay in [1e-8, 0.1]; decay exactly 0 on a whole step and on some
+    channels (the sequential definition resets the state; the reference's
+    chunked TPU kernel gives NaN there); bf16 inputs."""
+    lo, hi = (1e-8, 0.1) if case == "extreme" else (0.05, 0.999)
+    args = _wkv6_args(cuda, 7, 4, 333, 64, 64, lo, hi)
+    if case == "zero":
+        args[3][0, 70] = 0.0
+        args[3][1, 5, :7] = 0.0
+        args[3][2, 127] = 0.0                      # a chunk's last step
+    if case == "bf16":
+        args = [a.to(torch.bfloat16) for a in args]
+    got = _launched("wkv6", lambda: ops.wkv6(*args))
+    _wkv6_close(got, ref.wkv6(*args))
+
+
+def test_rwkv_time_mix_full_width_layer(cuda):
+    """One rwkv6-3b layer (d 2560, 40 heads of 64) in bf16: the time-mix
+    on the card (one wkv6 launch) against the same layer on the CPU (the
+    plain scan). bf16 matmuls round differently on the two devices, so
+    the output is held to 2e-2 of its largest magnitude, the bound of the
+    reference's decode-vs-forward check."""
+    from repro_torch import configs
+    from repro_torch.models import ssm, transformer as tf
+    cfg = configs.get_config("rwkv6_3b")
+    p = tf._block_params(cfg, torch.Generator().manual_seed(0),
+                         torch.bfloat16, "cpu")
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(2, 160, cfg.d_model)).astype(
+        np.float32)).to(torch.bfloat16)
+    zeros = torch.zeros((2, cfg.d_model), dtype=torch.bfloat16)
+    wkv = torch.zeros((2, cfg.n_heads, 64, 64))
+    with torch.no_grad():
+        want = ssm.rwkv_time_mix(cfg, p, x, zeros, wkv)[0]
+        pg = {k: v.to(cuda) for k, v in p.items()}
+        got = _launched("wkv6", lambda: ssm.rwkv_time_mix(
+            cfg, pg, x.to(cuda), zeros.to(cuda), wkv.to(cuda))[0])
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert bool(torch.isfinite(got).all())
+    assert err <= 2e-2 * float(want.float().abs().max()), err
