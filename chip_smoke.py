@@ -78,9 +78,10 @@ Phases, each failing the run (non-zero exit) on its own error:
    and [8, 4096] (cut from prefill_32k's batch 32: the full logits would
    take 137 GB), each with its launch counts reset and read around one
    forward (gates: 32 wkv6 launches, finite logits), tokens/s, device ms
-   and wkv6 ms per launch beside its bound; wkv6 against its plain
-   version (rtol = atol = 5e-4) on layer 0's real inputs and on T 33 and
-   4097, decay in [1e-8, 0.1], w = 0 rows and bf16 inputs; decode against
+   and wkv6 ms a call (its three kernels, each printed) beside its bound;
+   wkv6 against its plain version (rtol = atol = 5e-4) on layer 0's real
+   inputs and on T 33 and 4097, decay in [1e-8, 0.1], w = 0 rows, w = 0
+   at sub-chunk and chunk bounds and bf16 inputs; decode against
    forward with f32 weights on a [4, 256] prompt (rel < 2e-2); greedy
    decode at batch 128 (16 prompt + 32 tokens; gates: finite logits, 0
    wkv6 launches);
@@ -94,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -108,6 +110,7 @@ POINTS = 872_000
 QUERIES = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
+TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
 NEAR = 1e-5                      # MLP scores this close to the threshold
 #                                  may flip between kernel and plain
 TIMING_REPS = 30
@@ -160,16 +163,24 @@ def cuda_events(prof, match: str | None = None) -> list:
             and (match is None or match in e.name)]
 
 
-def device_ms(fn, match: str | None = None,
-              reps: int = TIMING_REPS) -> tuple[float, str]:
-    """Device time per call of ``fn()``: the summed CUPTI durations
-    (``torch.profiler``) of the device work it issues over ``reps``
-    calls. With ``match``, ``fn`` launches one kernel whose name contains
-    it, and the time is the mean over the launches the profile recorded
-    (it can miss some of a run of long launches; the source then says
-    how many it kept). A profile that recorded no matching activity is
-    taken once more; after two empty ones it falls back to ``event_ms``.
-    The second value names the source."""
+def kernel_means(events) -> dict:
+    """Mean duration (ms) of ``events`` by kernel: a name's first
+    identifier before its argument list, so the launches of one kernel
+    share a key."""
+    by: dict = {}
+    for e in events:
+        m = re.search(r"\w+(?=\()", e.name)
+        by.setdefault(m.group(0) if m else e.name, []).append(
+            e.time_range.elapsed_us() / 1e3)
+    return {n: sum(t) / len(t) for n, t in by.items()}
+
+
+def profiled_events(fn, match: str | None = None,
+                    reps: int = TIMING_REPS) -> list:
+    """The device events (``cuda_events``) of ``reps`` calls of ``fn()``
+    under ``torch.profiler`` (CUPTI), after two warm-up calls. A profile
+    that recorded no matching activity is taken once more; after two
+    empty ones the list is empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -182,10 +193,25 @@ def device_ms(fn, match: str | None = None,
             torch.cuda.synchronize()
         ev = cuda_events(prof, match)
         if ev:
-            n = reps if match is None else len(ev)
-            src = "cupti" if n == reps else \
-                f"cupti, {n} of {reps} launches recorded"
-            return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3, src
+            return ev
+    return []
+
+
+def device_ms(fn, match: str | None = None,
+              reps: int = TIMING_REPS) -> tuple[float, str]:
+    """Device time per call of ``fn()``: the summed CUPTI durations of
+    the device work it issues over ``reps`` calls (``profiled_events``).
+    With ``match``, ``fn`` launches one kernel whose name contains it,
+    and the time is the mean over the launches the profile recorded (it
+    can miss some of a run of long launches; the source then says how
+    many it kept). After two empty profiles it falls back to
+    ``event_ms``. The second value names the source."""
+    ev = profiled_events(fn, match, reps)
+    if ev:
+        n = reps if match is None else len(ev)
+        src = "cupti" if n == reps else \
+            f"cupti, {n} of {reps} launches recorded"
+        return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3, src
     return event_ms(fn, reps), "cuda-events"
 
 
@@ -1346,22 +1372,65 @@ RWKV_DECODE_BATCH = 128                  # decode_32k's batch
 RWKV_DECODE_PROMPT, RWKV_DECODE_TOKENS = 16, 32
 RWKV_CHECK = (4, 256)                    # decode-vs-forward prompt
 WKV6_TOL = 5e-4                          # the reference's (test_kernels.py)
+WKV6_SUB = 16                            # csrc/wkv6.cu's sub-chunk (kSub)
+
+
+def _wkv6_chunks(T: int, chunk: int) -> list:
+    return [chunk] * (T // chunk) + ([T % chunk] if T % chunk else [])
 
 
 def wkv6_work(BH: int, T: int, dk: int, dv: int, chunk: int
-              ) -> tuple[int, int]:
-    """Bytes and operations one wkv6 call needs. Bytes: r, k, w, v read
-    once and y written once, f32 (u is BH·dk). Operations, per chunk of
-    n steps and row: the strictly causal scores, n(n-1)/2 · dk (subtract,
-    exp, multiply, multiply-add: 5), their product with v (2 · n(n-1)/2 ·
-    dv), the inter-chunk and state products (2 · n·dk·dv each), and the
-    bonus (3 n·dk) — counting the T steps, not the padded ones."""
+              ) -> tuple[int, int, int]:
+    """What one wkv6 call needs, whatever computes it: bytes (r, k, w, v
+    read once and y written once, f32; u is BH·dk) and the operations of
+    the least-work decomposition, the sub-chunked one. Per chunk of n
+    steps and row: in f32, the per-channel diagonal blocks (m(m-1)/2 ·
+    dk pairs for a block of m <= 16 steps; subtract, exp, multiply,
+    multiply-add: 5) and the bonus (3 n·dk); on the tensor cores, one
+    product each (a split-operand product takes three): the off-diagonal
+    scores (2·dk a pair of steps in different blocks), scores @ v (2·dv a
+    pair, the diagonal included), the inter-chunk and state products
+    (2 n·dk·dv each). Counts the T steps, not the padded ones. Returns
+    (bytes, f32 operations, tensor-core operations)."""
     n_bytes = 4 * (BH * T * (3 * dk + 2 * dv) + BH * dk)
+    f32 = tc = 0
+    for n in _wkv6_chunks(T, chunk):
+        diag = sum(m * (m - 1) // 2 for m in _wkv6_chunks(n, WKV6_SUB))
+        pairs = n * (n - 1) // 2
+        f32 += 5 * diag * dk + 3 * n * dk
+        tc += 2 * (pairs - diag) * dk + 2 * (pairs + n) * dv \
+            + 4 * n * dk * dv
+    return n_bytes, BH * f32, BH * tc
+
+
+def wkv6_bound(BH: int, T: int, dk: int, dv: int, chunk: int
+               ) -> tuple[float, str]:
+    """The least time of one wkv6 call: the larger of its bytes over
+    HBM and its operations (``wkv6_work``: f32 work at 67 TFLOP/s, then
+    tensor-core work at the dense TF32 peak)."""
+    n_bytes, f32, tc = wkv6_work(BH, T, dk, dv, chunk)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32 / F32_OPS_PER_S + tc / TF32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wkv6_scores_bound(BH: int, T: int, dk: int, dv: int, chunk: int
+                      ) -> float:
+    """The chunk-serial kernel's yardstick, printed for continuity: every
+    strictly causal score of a chunk per channel (n(n-1)/2 · dk, 5
+    operations each), their product with v, the inter-chunk and state
+    products and the bonus, all on f32 at 67 TFLOP/s, against the same
+    bytes. It counts one decomposition's work, not the function's."""
     ops = 0
-    for n in [chunk] * (T // chunk) + ([T % chunk] if T % chunk else []):
+    for n in _wkv6_chunks(T, chunk):
         pairs = n * (n - 1) // 2
         ops += pairs * dk * 5 + 2 * pairs * dv + 4 * n * dk * dv + 3 * n * dk
-    return n_bytes, BH * ops
+    return bound_ms(wkv6_work(BH, T, dk, dv, chunk)[0], BH * ops)[0]
+
+
+def wkv6_phase_text(ms_by_kernel: dict) -> str:
+    return ", ".join(f"{n.removeprefix('wkv6_').removesuffix('_kernel')} "
+                     f"{ms:.4f}" for n, ms in ms_by_kernel.items())
 
 
 def wkv6_err(got, want) -> tuple[float, bool]:
@@ -1378,7 +1447,8 @@ def wkv6_checks(cfg, params, toks_by_path, dev):
     """The kernel against its plain version: the ``ops.wkv6`` wrapper
     (the call ``rwkv_time_mix`` makes) on layer 0's real r, k, v, w, u
     from each prefill shape, and on synthetic edge cases at dk = dv = 64.
-    Returns the kernel's JSON row, timed at the longest prefill."""
+    Times the kernels alone at each prefill shape; returns the kernel's
+    JSON row at the longest."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops, ref
@@ -1414,18 +1484,41 @@ def wkv6_checks(cfg, params, toks_by_path, dev):
               f"{plain_ms:.4f} ms (one call between events)")
         check(ok, f"wkv6 on layer 0 of the {path} forward: max error {err}")
         del y, want
+        # the kernels alone on these inputs, beside the plain version
+        launch, _ = ops.prepare("wkv6", *args, ops.WKV6_CHUNK)
+        phases = kernel_means(profiled_events(launch, "wkv6_"))
+        ms = sum(phases.values()) if phases else event_ms(launch)
+        src = f"CUPTI, mean a launch: {wkv6_phase_text(phases)}" \
+            if phases else "cuda-events"
+        b, by = wkv6_bound(BH, T, dk, dk, ops.WKV6_CHUNK)
+        print(f"  wkv6 (layer 0 of the {path} forward): {mism} mismatches, "
+              f"kernels {ms:.4f} ms a call ({src}; {event_ms(launch):.4f} "
+              f"ms between events), plain {plain_ms:.4f} ms (one call "
+              f"between events: ~10^5 launches, too many to profile), "
+              f"bound {b:.4f} ms ({by}; the chunk-serial yardstick "
+              f"{wkv6_scores_bound(BH, T, dk, dk, ops.WKV6_CHUNK):.4f} ms)")
+        # the row is the longest prefill's, the last one
+        row = json_row("wkv6", ms, plain_ms, b, by, err)
+        del launch
     rng = np.random.default_rng(0)
     for label, T_, lo, hi, zero, dt in (
             ("T 33", 33, 0.05, 0.999, False, torch.float32),
             ("T 4097", 4097, 0.05, 0.999, False, torch.float32),
             ("decay in [1e-8, 0.1]", 1000, 1e-8, 0.1, False, torch.float32),
             ("w = 0 rows", 1000, 0.05, 0.999, True, torch.float32),
+            ("w = 0 at sub-chunk and chunk bounds", 1000, 0.05, 0.999,
+             "bounds", torch.float32),
             ("bf16 inputs", 1000, 0.05, 0.999, False, torch.bfloat16)):
         a = [rng.normal(size=(8, T_, 64)).astype(np.float32)
              for _ in range(3)]
         a.append(rng.uniform(lo, hi, (8, T_, 64)).astype(np.float32))
         a.append(rng.normal(size=(8, 64)).astype(np.float32))
-        if zero:
+        if zero == "bounds":
+            for i, step in ((0, 0), (0, 15), (1, 16), (2, 63), (3, 64),
+                            (4, 127), (5, 128), (6, 999), (7, 511)):
+                a[3][i, step] = 0.0
+            a[3][7, 512, :9] = 0.0
+        elif zero:
             a[3][0, 70] = 0.0
             a[3][1, 5, :7] = 0.0
             a[3][2, 127] = 0.0
@@ -1437,16 +1530,7 @@ def wkv6_checks(cfg, params, toks_by_path, dev):
               f"{err_:.3e} (max |y| {float(want.abs().max()):.3f}): "
               f"{'held' if ok_ else 'BROKEN'}")
         check(ok_, f"wkv6 ({label}): max error {err_}")
-    # the longest prefill's inputs: the kernel alone, beside the plain
-    # version timed above
-    launch, _ = ops.prepare("wkv6", *args, ops.WKV6_CHUNK)
-    b, by = bound_ms(*wkv6_work(BH, T, dk, dk, ops.WKV6_CHUNK))
-    ms, src = device_ms(launch, "wkv6_kernel")
-    print(f"  wkv6 (layer 0 of the {path} forward): {mism} mismatches, "
-          f"kernel {ms:.4f} ms ({src}; {event_ms(launch):.4f} ms between "
-          f"events), plain {plain_ms:.4f} ms (one call between events: "
-          f"~10^5 launches, too many to profile), bound {b:.4f} ms ({by})")
-    return json_row("wkv6", ms, plain_ms, b, by, err)
+    return row
 
 
 def rwkv_phase(dev, card):
@@ -1517,17 +1601,19 @@ def rwkv_phase(dev, card):
         check(shape == (Bp, Sp, cfg.vocab_padded), f"{path}: logits {shape}")
         ev = cuda_events(prof)
         busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
-        wk = [e.time_range.elapsed_us() / 1e3 for e in ev
-              if "wkv6_kernel" in e.name]
-        b, by = bound_ms(*wkv6_work(Bp * cfg.n_heads, Sp, 64, 64,
-                                    ops.WKV6_CHUNK))
-        wk_ms = sum(wk) / max(len(wk), 1)
-        summary[path] = (f"{Bp * Sp / wall:.0f} tokens/s, {wall * 1e3:.1f} "
-                         f"ms wall, device {busy:.1f} ms per forward "
-                         f"(wkv6 {wk_ms:.4f} ms x {len(wk)} = "
-                         f"{100 * sum(wk) / max(busy, 1e-9):.1f}% of it)")
+        wk = cuda_events(prof, "wkv6_")
+        wk_mean = kernel_means(wk)
+        wk_sum = sum(e.time_range.elapsed_us() for e in wk) / 1e3
+        b, by = wkv6_bound(Bp * cfg.n_heads, Sp, 64, 64, ops.WKV6_CHUNK)
+        summary[path] = (
+            f"{Bp * Sp / wall:.0f} tokens/s, {wall * 1e3:.1f} ms wall, "
+            f"device {busy:.1f} ms per forward (wkv6 "
+            f"{sum(wk_mean.values()):.4f} ms a call x {L} = "
+            f"{100 * wk_sum / max(busy, 1e-9):.1f}% of it; ms a launch: "
+            f"{wkv6_phase_text(wk_mean)})")
         print(f"# rwkv6-3b {path} on {card}: {summary[path]}; wkv6 bound "
-              f"{b:.4f} ms ({by}); {len(ev)} device activities")
+              f"{b:.4f} ms ({by}); {len(ev)} device activities "
+              f"({len(wk)} wkv6 kernel launches)")
         top: dict = {}
         for e in ev:
             top[e.name] = top.get(e.name, 0.0) + \

@@ -186,7 +186,7 @@ KERNELS = {
         "src/repro/kernels/forest_infer.py:85"),
     "wkv6": Kernel(
         "wkv6", "wkv6_launch",
-        [_P] * 5 + [_I] * 6 + [_P, _P],
+        [_P] * 5 + [_I] * 3 + [_P] * 4,
         "src/repro/kernels/wkv6.py:82"),
 }
 

@@ -49,7 +49,7 @@ COMPACT_SLICED_QUERY_TILE = 4   # kQT in csrc/traverse_compact_sliced.cu
 DELTA_QUERY_TILE = 4      # kQT in csrc/delta_probe.cu
 FOREST_QUERY_TILE = 32    # kQT in csrc/forest_infer_cells.cu
 WKV6_CHUNK = 64           # the reference's DEF_CHUNK (kernels/wkv6.py)
-WKV6_DV_SLICE = 32        # kDvs in csrc/wkv6.cu: v / y / state columns a CTA
+WKV6_HEAD = 64            # kD in csrc/wkv6.cu: its dk = dv (smaller pad)
 CURVES = {"morton": 0, "hilbert": 1}
 # Shared memory one CTA may ask for on sm_90 (232,448 bytes, less room
 # for the kernels' static shared memory).
@@ -377,16 +377,6 @@ def _prep_delta_probe(queries, pts, k):
     return launch, (idx, cnt)
 
 
-def wkv6_smem(dk: int, chunk: int) -> int:
-    """Shared memory of one wkv6 CTA, the one formula of its layout (the
-    launcher takes it as given): the (r, cum) and (k, cum_inc) float2 rows
-    padded to dk + 1, the v slice, the [C, C + 1] scores, the state slice,
-    the bonus, u and exp(total)."""
-    dvs = WKV6_DV_SLICE
-    return 4 * (4 * chunk * (dk + 1) + chunk * dvs + chunk * (chunk + 1)
-                + dk * dvs + chunk + 2 * dk)
-
-
 def _prep_wkv6(r, k, v, w, u, chunk):
     BH, T, dk = r.shape
     dv = v.shape[-1]
@@ -395,18 +385,29 @@ def _prep_wkv6(r, k, v, w, u, chunk):
         raise ValueError(f"wkv6: r {tuple(r.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, w {tuple(w.shape)}, "
                          f"u {tuple(u.shape)} do not match")
-    if chunk <= 0 or chunk % 4 or T % chunk:
-        raise ValueError(f"wkv6: chunk {chunk} must be a positive multiple "
-                         f"of 4 that divides T={T}")
-    smem = wkv6_smem(dk, chunk)
-    if smem > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"wkv6: dk {dk}, chunk {chunk} need {smem} bytes "
-                         f"of shared memory (> {MAX_DYNAMIC_SMEM})")
-    y = torch.empty((BH, T, dv), dtype=torch.float32, device=r.device)
-    launch = _launcher(
-        "wkv6", r.device, *(_c(a, torch.float32) for a in (r, k, v, w, u)),
-        BH, T, dk, dv, chunk, smem, y)
-    return launch, y
+    if chunk <= 0 or chunk % 16 or chunk > 64 or T % chunk:
+        raise ValueError(f"wkv6: chunk {chunk} must be a multiple of 16, at "
+                         f"most 64, that divides T={T}")
+    if dk > WKV6_HEAD or dv > WKV6_HEAD:
+        raise ValueError(f"wkv6: dk {dk}, dv {dv}: the kernel takes heads "
+                         f"of at most {WKV6_HEAD}")
+    # smaller heads are padded with channels that add nothing: r = k = u
+    # = v = 0, w = 1; y's padded columns are sliced off
+    D = WKV6_HEAD
+
+    def pad(a, n, value=0.0):
+        a = _c(a, torch.float32)
+        return torch.nn.functional.pad(a, (0, D - n), value=value) \
+            if n < D else a
+    nc = T // chunk
+    dev = r.device
+    states = torch.empty((BH, nc, D, D), dtype=torch.float32, device=dev)
+    decay = torch.empty((BH, nc, D), dtype=torch.float32, device=dev)
+    y = torch.empty((BH, T, D), dtype=torch.float32, device=dev)
+    launch = _launcher("wkv6", dev, pad(r, dk), pad(k, dk), pad(v, dv),
+                       pad(w, dk, 1.0), pad(u, dk), BH, T, chunk, states,
+                       decay, y)
+    return launch, y[..., :dv]
 
 
 _PREP = {"traverse_fused": _prep_traverse_fused,
@@ -689,8 +690,12 @@ def pad_time(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, chunk: int = WKV6_CHUNK) -> torch.Tensor:
     """RWKV-6 scan: r/k/w [BH,T,dk], v [BH,T,dv], u [BH,dk] → y [BH,T,dv]
-    float32. On the card the chunked kernel over T padded to a multiple of
-    ``chunk``; on the CPU the sequential plain version."""
+    float32. On the card the chunk-parallel kernels (one launch: chunk
+    state deltas, the pass over chunk states, the outputs) over T padded
+    to a multiple of ``chunk``, with chunk-state scratch of BH·T/chunk·
+    64·64 floats; on the CPU the sequential plain version. The card takes
+    dk, dv <= 64 (padded to 64) and a chunk that is a multiple of 16, at
+    most 64; anything else raises ``ValueError``."""
     if not _on_cuda(r, k, v, w, u):
         return ref.wkv6(r, k, v, w, u)
     T = r.shape[1]

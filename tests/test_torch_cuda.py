@@ -432,9 +432,10 @@ def test_walk_probe_runs(cuda, capsys):
 
 
 # ---------------------------------------------------------------------------
-# wkv6 (the rwkv6 scan): a tolerance, not bits — the chunked kernel and the
-# sequential plain version add the same float32 terms in another order.
-# rtol = atol = 5e-4 is the reference's own (tests/test_kernels.py).
+# wkv6 (the rwkv6 scan): a tolerance, not bits — the chunk-parallel kernels
+# (split-TF32 tensor-core products) and the sequential plain version add
+# the same float32 terms in another order. rtol = atol = 5e-4 is the
+# reference's own (tests/test_kernels.py). ``chunk`` is the kernels' C.
 # ---------------------------------------------------------------------------
 
 def _wkv6_args(dev, seed, BH, T, dk, dv, lo=0.05, hi=0.999):
@@ -459,6 +460,7 @@ def _wkv6_close(got, want):
     (2, 97, 64, 64, 64), (3, 200, 16, 40, 64),   # padded T; dv past a slice
     (40, 4096, 64, 64, 64),                      # rwkv6-3b, batch 1
     (320, 4096, 64, 64, 64),                     # rwkv6-3b, batch 8
+    (40, 32768, 64, 64, 64),                     # batch 1, 512 chunk states
 ])
 def test_wkv6_kernel(cuda, BH, T, dk, dv, chunk):
     args = _wkv6_args(cuda, BH * T + dv, BH, T, dk, dv)
@@ -466,21 +468,62 @@ def test_wkv6_kernel(cuda, BH, T, dk, dv, chunk):
     _wkv6_close(got, ref.wkv6(*args))
 
 
-@pytest.mark.parametrize("case", ["extreme", "zero", "bf16"])
+@pytest.mark.parametrize("case", ["extreme", "zero", "zero_bounds", "bf16"])
 def test_wkv6_kernel_decay_edges(cuda, case):
     """Decay in [1e-8, 0.1]; decay exactly 0 on a whole step and on some
     channels (the sequential definition resets the state; the reference's
-    chunked TPU kernel gives NaN there); bf16 inputs."""
+    chunked TPU kernel gives NaN there), also at the first and last step
+    of 16-step sub-chunks and of 64-step chunks; bf16 inputs."""
     lo, hi = (1e-8, 0.1) if case == "extreme" else (0.05, 0.999)
     args = _wkv6_args(cuda, 7, 4, 333, 64, 64, lo, hi)
     if case == "zero":
         args[3][0, 70] = 0.0
         args[3][1, 5, :7] = 0.0
         args[3][2, 127] = 0.0                      # a chunk's last step
+    if case == "zero_bounds":
+        for row, step, n_ch in [(0, 0, None), (0, 15, None), (0, 16, None),
+                                (1, 31, 9), (1, 32, None), (2, 63, None),
+                                (2, 64, 5), (3, 191, None), (3, 192, None),
+                                (3, 332, None)]:
+            args[3][row, step, :n_ch] = 0.0
     if case == "bf16":
         args = [a.to(torch.bfloat16) for a in args]
     got = _launched("wkv6", lambda: ops.wkv6(*args))
     _wkv6_close(got, ref.wkv6(*args))
+
+
+def test_wkv6_one_launch_a_call(cuda):
+    """One ``ops.wkv6`` call is one launch on the wrapper's count (its
+    three kernels go out in one ``wkv6_launch``), and no other kernel's."""
+    args = _wkv6_args(cuda, 9, 2, 200, 64, 64)
+    kcuda.reset_launch_counts()
+    ops.wkv6(*args)
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    assert counts["wkv6"] == 1
+    assert sum(counts.values()) == 1
+
+
+@pytest.mark.parametrize("chunk", [8, 24, 128])
+def test_wkv6_launch_refuses_other_chunks(cuda, chunk):
+    """The C launcher itself refuses a chunk that is no multiple of 16 or
+    past 64 (cudaErrorInvalidValue, 1) before it launches anything: the
+    kernels' layout holds at most four 16-step sub-chunks."""
+    BH, T, D = 1, 384, ops.WKV6_HEAD
+    r, k, v, w = (torch.ones(BH, T, D, device=cuda) for _ in range(4))
+    u = torch.ones(BH, D, device=cuda)
+    states = torch.empty(BH, T // 8, D, D, device=cuda)
+    decay = torch.empty(BH, T // 8, D, device=cuda)
+    y = torch.full((BH, T, D), 7.0, device=cuda)
+    kernel = kcuda.KERNELS["wkv6"]
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        kernel(*(a.data_ptr() for a in (r, k, v, w, u)), BH, T, chunk,
+               states.data_ptr(), decay.data_ptr(), y.data_ptr(),
+               torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert kernel.launches == before
+    assert bool((y == 7.0).all())
 
 
 def test_rwkv_time_mix_full_width_layer(cuda):

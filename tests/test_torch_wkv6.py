@@ -17,6 +17,16 @@ A decay of exactly 0 is held against the sequential scan only: the
 reference's chunked kernel gives NaN there (``log 0 - log 0``), a
 reference fault the port's CUDA kernel does not share; the test asserts
 that the NaN is still there, so the fault stays visible.
+
+``_mirror`` rehearses the card's decomposition (``csrc/wkv6.cu``) in
+plain PyTorch, step for step: log2 w clamped at -126, the chunk's
+exclusive cumsum P, the chunk state deltas and decays, the pass over
+chunk states, and the outputs by 16-step sub-chunks (the off-diagonal
+scores factored at the sub-chunk's first step, the diagonal blocks per
+channel). It runs in float64, so that 1e-5 against both float32
+sequential scans tests its algebra and not float32 rounding: in float32
+the chunked form is 1e-4 from the scan at dk 64, as the reference's
+kernel is, and is held to 5e-4 there.
 """
 import numpy as np
 import pytest
@@ -54,6 +64,60 @@ def _jax(fn, args, dtype=jnp.float32, **kw):
 
 def _close(got, want, tol):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+SUB = 16            # steps of a sub-chunk (kSub in csrc/wkv6.cu)
+
+
+def _mirror(r, k, v, w, u, chunk):
+    """The card's chunk-parallel split of the scan, on the CPU in the
+    inputs' type (r/k/w [BH, T, dk], v [BH, T, dv], u [BH, dk] → y
+    [BH, T, dv])."""
+    T = r.shape[1]
+    r, k, v, w = ops.pad_time(r, k, v, w, chunk)
+    BH, Tp, dk = r.shape
+    dv = v.shape[-1]
+    C, nc = chunk, Tp // chunk
+    rc, kc, wc = (a.reshape(BH, nc, C, dk) for a in (r, k, w))
+    vc = v.reshape(BH, nc, C, dv)
+    lw = torch.log2(wc)
+    lw = torch.where(lw < -126.0, torch.full_like(lw, -126.0), lw)
+    P = torch.cat([torch.zeros_like(lw[:, :, :1]), lw.cumsum(2)], 2)
+    # 1. chunk state deltas dS_c = (k ⊙ 2^{tot - P_{j+1}})ᵀ v, decay 2^{tot}
+    tot = P[:, :, C:]
+    dS = (kc * torch.exp2(tot - P[:, :, 1:])).transpose(2, 3) @ vc
+    decay = torch.exp2(tot[:, :, 0])
+    # 2. the pass over chunk states: S_c enters chunk c
+    S = torch.zeros_like(dS[:, 0])
+    enter = []
+    for c in range(nc):
+        enter.append(S)
+        S = decay[:, c, :, None] * S + dS[:, c]
+    Sc = torch.stack(enter, 1)
+    # 3. outputs: inter, then per 16-step sub-chunk the off-diagonal scores
+    #    (factored at its first step s) and the diagonal block per channel
+    y = (rc * torch.exp2(P[:, :, :C])) @ Sc
+    causal = torch.tril(torch.ones(SUB, SUB, dtype=torch.bool), -1)
+    for s in range(0, C, SUB):
+        rows = slice(s, s + SUB)
+        sc = torch.zeros(BH, nc, SUB, s + SUB, dtype=r.dtype)
+        if s:
+            a = rc[:, :, rows] * torch.exp2(P[:, :, rows] - P[:, :, s:s + 1])
+            b = kc[:, :, :s] * torch.exp2(P[:, :, s:s + 1] - P[:, :, 1:s + 1])
+            sc[..., :s] = a @ b.transpose(2, 3)
+        e = P[:, :, rows, None, :] - P[:, :, None, s + 1:s + SUB + 1, :]
+        e = torch.where(causal[:, :, None], e, torch.full_like(e, -torch.inf))
+        diag = (rc[:, :, rows, None, :] * kc[:, :, None, rows, :]
+                * torch.exp2(e)).sum(-1)
+        bonus = (rc[:, :, rows] * u[:, None, None, :] * kc[:, :, rows]).sum(-1)
+        sc[..., s:] = diag + torch.diag_embed(bonus)
+        y[:, :, rows] += sc @ vc[:, :, :s + SUB]
+    return y.reshape(BH, Tp, dv)[:, :T]
+
+
+def _mirror_np(args, chunk, dtype=torch.float64):
+    return _mirror(*(torch.from_numpy(a).to(dtype) for a in args),
+                   chunk).to(torch.float32).numpy()
 
 
 @pytest.mark.parametrize("BH,T,dk,dv,chunk", [
@@ -103,6 +167,63 @@ def test_wkv6_zero_decay_matches_the_scan():
     assert np.isnan(_jax(jops.wkv6, args, chunk=16)).any()
 
 
+MIRROR_SHAPES = [
+    (1, 16, 8, 8, 16), (3, 64, 8, 16, 16), (2, 48, 16, 16, 16),
+    (1, 33, 8, 8, 16), (2, 128, 32, 32, 64),    # the table above
+    (2, 70, 16, 8, 64), (3, 100, 8, 24, 32),     # T no multiple of 16
+    (2, 200, 64, 64, 64), (1, 96, 16, 16, 48),   # the card's width; C 48
+]
+
+
+@pytest.mark.parametrize("BH,T,dk,dv,chunk", MIRROR_SHAPES)
+def test_wkv6_mirror_shapes(BH, T, dk, dv, chunk):
+    """The card's split, rehearsed on the CPU, against both sequential
+    scans (1e-5) and the reference's chunked kernel (5e-4)."""
+    args = _inputs(10, BH, T, dk, dv)
+    got = _mirror_np(args, chunk)
+    assert got.shape == (BH, T, dv)
+    _close(got, _port(args), SAME)
+    _close(got, _jax(jref.wkv6, args), SAME)
+    _close(got, _jax(jops.wkv6, args, chunk=chunk), TOL)
+    _close(_mirror_np(args, chunk, torch.float32), got, TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_wkv6_mirror_extreme_decay(chunk):
+    args = _inputs(11, 2, 150, 16, 16, lo=1e-8, hi=0.1)
+    got = _mirror_np(args, chunk)
+    assert np.isfinite(got).all()
+    _close(got, _port(args), SAME)
+    _close(got, _jax(jref.wkv6, args), SAME)
+    _close(got, _jax(jops.wkv6, args, chunk=chunk), TOL)
+
+
+# w = 0 on steps at the edges of a sub-chunk (15, 16, 31) and of a chunk
+# (63, 64, 127, the padded sequence's last real step 149); a whole step or
+# some channels
+ZERO_STEPS = [(0, 15, None), (0, 16, None), (1, 31, 3), (1, 63, None),
+              (2, 64, 5), (2, 127, None), (0, 149, None), (1, 0, None)]
+
+
+@pytest.mark.parametrize("chunk", [64, 32])
+def test_wkv6_mirror_zero_decay_at_boundaries(chunk):
+    """w = 0 resets the state at the first and last step of a sub-chunk
+    and of a chunk: the split agrees with the sequential scans (the
+    reference's chunked kernel gives NaN there)."""
+    args = list(_inputs(12, 3, 150, 16, 16))
+    for row, step, n_ch in ZERO_STEPS:
+        args[3][row, step, :n_ch] = 0.0
+    got = _mirror_np(args, chunk)
+    assert np.isfinite(got).all()
+    _close(got, _port(args), SAME)
+    _close(got, _jax(jref.wkv6, args), SAME)
+    # the reset: row 2's outputs after step 127 do not see the steps before
+    cut = [a.copy() for a in args]
+    cut[1][2, :127] = 0.0
+    _close(_mirror_np(cut, chunk)[2, 128:], got[2, 128:], SAME)
+    assert np.isnan(_jax(jops.wkv6, args, chunk=16)).any()
+
+
 def test_pad_time_adds_identity_steps():
     """The card's padding: w = 1 and r = k = v = 0 past T leave the first
     T outputs of the scan bit-equal."""
@@ -131,18 +252,75 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
 
 def test_wkv6_launcher_checks():
     """The card's launcher validates shapes before it touches a device:
-    mismatched inputs, a chunk that is no multiple of 4 or does not divide
-    T, and a CTA past the shared memory limit raise. The rwkv6-3b shape
-    (dk = dv = 64, chunk 64) fits one CTA."""
+    mismatched inputs, a chunk that is no multiple of 16, past 64 or does
+    not divide T, and a head wider than the kernel's 64 raise (the C
+    launcher's own refusal is a card test)."""
     r, k, v, w, u = (torch.from_numpy(a) for a in _inputs(6, 1, 64, 8, 8))
     with pytest.raises(ValueError, match="do not match"):
         ops._prep_wkv6(r, k[:, :32], v, w, u, 16)
-    with pytest.raises(ValueError, match="multiple of 4"):
+    with pytest.raises(ValueError, match="multiple of 16"):
         ops._prep_wkv6(r, k, v, w, u, 6)
-    with pytest.raises(ValueError, match="multiple of 4"):
+    with pytest.raises(ValueError, match="multiple of 16"):
         ops._prep_wkv6(r, k, v, w, u, 48)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops._prep_wkv6(r, k, v, w, u, 128)
     big = torch.zeros(1, 256, 512)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops._prep_wkv6(big, big, big, big, torch.zeros(1, 512), 256)
-    assert ops.wkv6_smem(64, ops.WKV6_CHUNK) <= ops.MAX_DYNAMIC_SMEM
+    with pytest.raises(ValueError, match="heads of at most 64"):
+        ops._prep_wkv6(big, big, big, big, torch.zeros(1, 512), 64)
     assert kcuda.KERNELS["wkv6"].replaces == "src/repro/kernels/wkv6.py:82"
+
+
+def _smoke():
+    """``chip_smoke.py`` (repo root) as a module; it imports nothing of
+    the card at module level."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("BH, T", [(40, 32768), (320, 4096)])
+def test_smoke_wkv6_bound_at_the_prefill_shapes(BH, T):
+    """The smoke's wkv6 bound at rwkv6-3b's prefill shapes: r, k, w, v
+    read once and y written once (f32) over 3.35 TB/s outweigh the
+    sub-chunked form's operations; the chunk-serial yardstick printed
+    beside it counts more operations than the sub-chunked form."""
+    smoke = _smoke()
+    n_bytes, f32, tc = smoke.wkv6_work(BH, T, 64, 64, 64)
+    assert n_bytes == 4 * (BH * T * 5 * 64 + BH * 64)
+    b, by = smoke.wkv6_bound(BH, T, 64, 64, 64)
+    assert by == "bytes"
+    assert b == pytest.approx(n_bytes / smoke.HBM_BYTES_PER_S * 1e3)
+    assert f32 / smoke.F32_OPS_PER_S + tc / smoke.TF32_OPS_PER_S < b / 1e3
+    old = smoke.wkv6_scores_bound(BH, T, 64, 64, 64)
+    assert old > b
+    assert 64 * 63 // 2 * 64 * 5 * BH * T // 64 > f32
+
+
+def test_smoke_kernel_means_groups_launches_by_kernel():
+    """``chip_smoke.kernel_means`` keys a CUPTI event by the kernel's name
+    before its argument list (anonymous namespace or not), so the three
+    wkv6 kernels of a call are each a mean over their own launches."""
+    class Span:
+        def __init__(self, us):
+            self.us = us
+
+        def elapsed_us(self):
+            return self.us
+
+    class Event:
+        def __init__(self, name, us):
+            self.name, self.time_range = name, Span(us)
+
+    anon = "(anonymous namespace)::"
+    events = [Event(anon + "wkv6_state_kernel(float const*, int)", 500),
+              Event(anon + "wkv6_state_kernel(float const*, int)", 700),
+              Event(anon + "wkv6_scan_kernel(float*, int, int)", 300),
+              Event("wkv6_output_kernel(float const*)", 1200)]
+    means = _smoke().kernel_means(events)
+    assert means == pytest.approx({"wkv6_state_kernel": 0.6,
+                                   "wkv6_scan_kernel": 0.3,
+                                   "wkv6_output_kernel": 1.2})
