@@ -71,7 +71,10 @@ Phases, each failing the run (non-zero exit) on its own error:
    kNN and join streams on it (serve.py's defaults; join selectivity
    1e-6); gates: traverse_compact_sliced launched, no full walk, oracles
    at 0 mismatches, at least 200 of 256 sampled join rows not truncated;
-   time traverse_compact_sliced on the kNN stream's first batch;
+   traverse_compact_sliced bit-equal to its plain version and timed
+   (each of its count, scan and write kernels, CUPTI) on the kNN
+   stream's first narrow batch (k 64) and first wide batch (the rows the
+   narrow tier flags, at twice the radius, k 512);
 12. the rwkv6-3b serving path at the published width (32 layers, d_model
    2560, 40 heads of 64, d_ff 8960, vocab 65536; ``init_params`` in bf16
    from ``torch.Generator`` seed 0, on the card): ``forward`` at [1, 32768]
@@ -223,18 +226,29 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def kernel_row(name, mism, launch, plain, n_bytes, n_ops,
                max_abs_err=0.0, plain_reps=TIMING_REPS, label="") -> dict:
-    """Time ``launch`` (the kernel alone) and ``plain`` on the card
-    (``plain_reps`` calls for a plain version of thousands of launches),
-    print them beside the bound, and return the kernel's JSON row (launch
-    count filled in later)."""
+    """Time ``launch`` (the kernel alone: the mean CUPTI time of each
+    kernel whose name contains ``<name>_kernel``, summed over the kernels
+    one launch issues) and ``plain`` on the card (``plain_reps`` calls
+    for a plain version of thousands of launches), print them beside the
+    bound, and return the kernel's JSON row (launch count filled in
+    later), with each kernel's time under ``pass_ms`` when a launch
+    issues several."""
     b, by = bound_ms(n_bytes, n_ops)
-    ms, src = device_ms(launch, f"{name}_kernel")
+    passes = kernel_means(profiled_events(launch, f"{name}_kernel"))
+    ms = sum(passes.values()) if passes else event_ms(launch)
+    src = "cupti" if passes else "cuda-events"
+    if len(passes) > 1:
+        src += ", mean a launch: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in passes.items())
     plain_ms, psrc = device_ms(plain, reps=plain_reps)
     print(f"  {name}{label}: {mism} mismatches, kernel {ms:.4f} ms ({src}; "
           f"{event_ms(launch):.4f} ms between events), plain "
           f"{plain_ms:.4f} ms ({psrc}; {event_ms(plain, plain_reps):.4f} "
           f"ms between events), bound {b:.4f} ms ({by})")
-    return json_row(name, ms, plain_ms, b, by, max_abs_err)
+    row = json_row(name, ms, plain_ms, b, by, max_abs_err)
+    if len(passes) > 1:
+        row["pass_ms"] = passes
+    return row
 
 
 def json_row(name, ms, plain_ms, b, by, max_abs_err) -> dict:
@@ -557,9 +571,8 @@ def large_index(dev, card, points: int):
     and never on a full walk; both oracles at 0 mismatches. Returns
     ``(launch counts by stream, rates, the traverse_compact_sliced row)``.
     """
-    import numpy as np
     import torch
-    from repro_torch.core import device_tree as dt, knn, schedule
+    from repro_torch.core import device_tree as dt
     from repro_torch.core.rtree import RTree
     from repro_torch.data import synth
     from repro_torch.kernels import cuda as kcuda, ops, ref
@@ -629,34 +642,68 @@ def large_index(dev, card, points: int):
         rates[qt] = ", ".join(f"{v:.0f} {k}" for k, v in out.items())
         print(f"# large {qt} on {card}: {rates[qt]}")
 
-    # traverse_compact_sliced at the serving shape: the kNN stream's
-    # first narrow batch (probe boxes in Hilbert order)
+    # traverse_compact_sliced at the serving shapes: the kNN stream's first
+    # narrow batch (k 64) and its first wide batch (the overflow rows at
+    # twice the radius, k 512)
     kargs = serve.parse_args(base + ["--query-type", "knn"])
-    centers, r, _ = serve.knn_stream(tree, pts, kargs)
-    boxes = np.concatenate([centers - r, centers + r], 1).astype(np.float32)
-    sched = schedule.make_schedule(boxes, 512, "hilbert", device=dev)
-    qb = torch.from_numpy(boxes[sched.order[:512]]).to(dev)
     mb = [lv.mbrs for lv in tree.levels]
     pa = [lv.parent for lv in tree.levels]
-    launch, (kidx, kcnt) = ops.prepare("traverse_compact_sliced", qb, mb, pa,
-                                       sl, 64)
-    launch()
-    pidx, _, pcnt = ref.traverse_compact_sliced(qb, mb, pa, sl.starts,
-                                                sl.widths, sl.tl, 64)
-    mism = int((kidx != pidx).sum()) + int((kcnt != pcnt).sum())
-    check(mism == 0, f"traverse_compact_sliced (large index): {mism} "
-          "mismatches")
-    tests, nodes = walk_work(qb, mb, pa)
-    row = kernel_row(
-        "traverse_compact_sliced", mism, launch,
-        lambda: ref.traverse_compact_sliced(qb, mb, pa, sl.starts, sl.widths,
-                                            sl.tl, 64),
-        512 * 16 + nodes * 20 + sl.starts.numel() * 4 + 512 * 65 * 4,
-        tests * 4, plain_reps=3,
-        label=f" (large index, kNN batch, mean "
-              f"{float(kcnt.float().mean()):.1f} visited)")
+    rows = []
+    for tier, qb, k in zip(("kNN batch", "kNN wide batch"),
+                           knn_batches(tree, pts, kargs, dev), (64, 512)):
+        launch, (kidx, kcnt) = ops.prepare("traverse_compact_sliced", qb, mb,
+                                           pa, sl, k)
+        launch()
+        pidx, _, pcnt = ref.traverse_compact_sliced(qb, mb, pa, sl.starts,
+                                                    sl.widths, sl.tl, k)
+        mism = int((kidx != pidx).sum()) + int((kcnt != pcnt).sum())
+        check(mism == 0, f"traverse_compact_sliced (large index, {tier}): "
+              f"{mism} mismatches")
+        tests, nodes = walk_work(qb, mb, pa)
+        B = qb.shape[0]
+        rows.append(kernel_row(
+            "traverse_compact_sliced", mism, launch,
+            lambda: ref.traverse_compact_sliced(qb, mb, pa, sl.starts,
+                                                sl.widths, sl.tl, k),
+            B * 16 + nodes * 20 + sl.starts.numel() * 4 + B * (k + 1) * 4,
+            tests * 4, plain_reps=3,
+            label=f" (large index, {tier}: B {B}, k {k}, "
+                  f"{ops.compact_sliced_segments(B, sl.n_tiles)} segments, "
+                  f"mean {float(kcnt.float().mean()):.1f} visited)"))
+    row, wide = rows
+    row["wide"] = {key: wide[key] for key in
+                   ("ms", "plain_ms", "bound_ms", "bound_by", "pass_ms")
+                   if key in wide}
     print(f"# large-index phase: {time.time()-t_all:.1f}s")
     return counts, rates, row
+
+
+def knn_batches(tree, pts, kargs, dev):
+    """The kNN stream's first narrow batch of probe boxes (centre ± r, in
+    the stream's Hilbert order) and its first wide batch: the rows the
+    narrow tier flags, at centre ± 2r, in the wide tier's order (padded
+    to the batch as the scheduler pads it). Both [batch, 4] on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import knn, schedule
+    from repro_torch.launch import serve
+    centers, r, _ = serve.knn_stream(tree, pts, kargs)
+    q = np.concatenate([centers, centers], 1)
+    bbox = schedule.workload_bbox(q)
+    narrow, _ = knn.make_knn_steps(tree, k=kargs.knn_k, radius=r,
+                                   max_visited=kargs.max_visited,
+                                   wide_factor=kargs.wide_factor)
+    flagged = np.flatnonzero(schedule.serve_workload(
+        narrow, q, batch=kargs.batch, sort=kargs.sort, bbox=bbox,
+        device=dev).stats.truncated)
+    out = []
+    for rows, radius in ((q, r), (q[flagged], 2.0 * r)):
+        sched = schedule.make_schedule(rows, kargs.batch, kargs.sort, bbox,
+                                       dev)
+        c = next(schedule.iter_batches(rows, sched))[0][:, :2]
+        out.append(torch.from_numpy(np.concatenate(
+            [c - np.float32(radius), c + np.float32(radius)], 1)).to(dev))
+    return out
 
 
 def spatial_key_check(idx, dev) -> dict:

@@ -23,8 +23,7 @@
 // tiles reached and returns the tile's own count, and the caller zero-fills
 // the slots and writes the count once the row is done.
 //
-// Shared by mlp_predict_compact.cu, traverse_compact.cu, delta_probe.cu
-// and traverse_compact_sliced.cu.
+// Shared by mlp_predict_compact.cu, traverse_compact.cu and delta_probe.cu.
 #pragma once
 
 #include <cstdint>

@@ -178,7 +178,7 @@ KERNELS = {
     "traverse_compact_sliced": Kernel(
         "traverse_compact_sliced", "traverse_compact_sliced_launch",
         [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, ctypes.POINTER(_I),
-         _I, _I, _P, _P, _I, _I, _P, _P, _P],
+         _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P],
         "src/repro/kernels/traverse_fused.py:886"),
     "forest_infer_cells": Kernel(
         "forest_infer_cells", "forest_infer_cells_launch",

@@ -45,7 +45,8 @@ TRAVERSE_LEAF_CHUNK = 2048
 TRAVERSE_QUERY_TILE = 8
 COMPACT_QUERY_TILE = 4
 SLICED_QUERY_TILE = 8           # kQT in csrc/traverse_fused_sliced.cu
-COMPACT_SLICED_QUERY_TILE = 4   # kQT in csrc/traverse_compact_sliced.cu
+COMPACT_SLICED_QUERY_TILE = 8   # kQT in csrc/traverse_compact_sliced.cu
+COMPACT_SLICED_ROUND_WORDS = 16  # kRound / 32 there: bitmap words a row
 DELTA_QUERY_TILE = 4      # kQT in csrc/delta_probe.cu
 FOREST_QUERY_TILE = 32    # kQT in csrc/forest_infer_cells.cu
 WKV6_CHUNK = 64           # the reference's DEF_CHUNK (kernels/wkv6.py)
@@ -54,6 +55,12 @@ CURVES = {"morton": 0, "hilbert": 1}
 # Shared memory one CTA may ask for on sm_90 (232,448 bytes, less room
 # for the kernels' static shared memory).
 MAX_DYNAMIC_SMEM = 227 * 1024 - 1024
+# The card's SMs (H100 SXM), and the CTAs of each pass of
+# traverse_compact_sliced that compact_sliced_segments aims for on each:
+# four waves of the four an SM holds (kMinBlocks there), measured best on
+# the 40M-point index's kNN batches (PERF.md).
+SM_COUNT = 132
+COMPACT_SLICED_CTAS_PER_SM = 16
 
 launch_counts = _cuda.launch_counts
 reset_launch_counts = _cuda.reset_launch_counts
@@ -109,7 +116,12 @@ def walk_smem(kind: str, route: str, level_sizes: Sequence[int],
     if route == "sliced":
         if kind == "fused":
             return 2 * SLICED_QUERY_TILE * max(widths)
-        return COMPACT_SLICED_QUERY_TILE * ((tl + 31) // 32 * 4 + sum(widths))
+        # one kQT-bit mask per window node (16-byte aligned), and the
+        # write pass's bitmap of a round's words a row
+        mask = 1 if COMPACT_SLICED_QUERY_TILE <= 8 else \
+            2 if COMPACT_SLICED_QUERY_TILE <= 16 else 4
+        return -(-sum(widths) * mask // 16) * 16 + \
+            COMPACT_SLICED_QUERY_TILE * COMPACT_SLICED_ROUND_WORDS * 4
     raise ValueError(f"no shared-memory walk on route {route!r}")
 
 
@@ -133,6 +145,21 @@ def walk_route(kind: str, level_sizes: Sequence[int],
             MAX_DYNAMIC_SMEM:
         return "sliced"
     return "per_level"
+
+
+def compact_sliced_segments(B: int, n_tiles: int) -> int:
+    """S, the number of contiguous leaf-tile segments the sliced compact
+    walk splits its ``n_tiles`` tiles into for ``B`` queries: enough that
+    the ``ceil(B / kQT) * S`` CTAs of each pass put
+    ``COMPACT_SLICED_CTAS_PER_SM`` on every SM, and no more than gives
+    every segment a tile: S segments of ``ceil(n_tiles / S)`` tiles, the
+    last one possibly shorter. Each CTA walks its windows once before its
+    leaves, so more segments split the dense clusters' leaves finer but
+    pay that walk more often."""
+    groups = -(-B // COMPACT_SLICED_QUERY_TILE)
+    fill = -(-SM_COUNT * COMPACT_SLICED_CTAS_PER_SM // groups)
+    per = -(-n_tiles // max(1, min(n_tiles, fill)))
+    return -(-n_tiles // per)
 
 
 def _slices_usable(sl, n_levels: int, L: int, device: torch.device) -> bool:
@@ -246,11 +273,16 @@ def _prep_traverse_compact_sliced(queries, level_mbrs, level_parents, sl, k):
         raise ValueError(f"traverse_compact_sliced needs k > 0, got {k}")
     args = _walk_args("traverse_compact_sliced", "compact", "sliced",
                       queries, level_mbrs, level_parents, sl)
+    S = compact_sliced_segments(B, sl.n_tiles)
     idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)
     cnt = torch.empty((B,), dtype=torch.int32, device=queries.device)
+    # each (row, segment)'s visit count, then its first rank; and the
+    # first leaf of the round of its first visit there
+    scratch = torch.empty((2, B, S), dtype=torch.int32,
+                          device=queries.device)
     launch = _launcher("traverse_compact_sliced", queries.device, *args[:6],
                        *_table_args(sl, level_mbrs, queries.device),
-                       *args[6:], k, idx, cnt)
+                       *args[6:], k, idx, cnt, scratch, S)
     return launch, (idx, cnt)
 
 

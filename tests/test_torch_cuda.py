@@ -262,26 +262,40 @@ def test_traverse_fused_sliced_kernel(cuda, table):
     assert not got[0].any() and (table == "shifted" or got[-1].all())
 
 
+@pytest.mark.parametrize("segments", ["auto", "1", "2", "n_tiles"])
 @pytest.mark.parametrize("table", ["built", "degenerate", "shifted"])
 @pytest.mark.parametrize("k", [64, 512])
-def test_traverse_compact_sliced_kernel(cuda, table, k):
+def test_traverse_compact_sliced_kernel(cuda, monkeypatch, table, k,
+                                        segments):
     """Bit-equal to ``compact_mask_counted`` of the windowed walk, with
-    rows visiting 0, exactly k and k + 1 leaves and a batch off the
-    query tile."""
+    rows visiting 0, exactly k, k + 1 and all L leaves, batches of 1, of
+    106 (off the query tile) and of 513 rows, and the segment count the
+    wrapper picks or forced to 1, 2 and n_tiles (``monkeypatch``); one
+    launch count per call."""
     mb, pa, sl, mbrs = _sliced_tree(cuda, table=table)
+    if segments != "auto":
+        S = sl.n_tiles if segments == "n_tiles" else int(segments)
+        monkeypatch.setattr(ops, "compact_sliced_segments",
+                            lambda B, n_tiles: S)
     rng = np.random.default_rng(10)
-    q = np.concatenate([edge_queries(rng, mbrs[-1]),
-                        rects(rng, 60, -1, 1, 0.1),
-                        strip_queries(mbrs[-1], [0, k, k + 1])])
-    q = _g(q.astype(np.float32), cuda)
-    launch, (idx, cnt) = ops.prepare("traverse_compact_sliced", q, mb, pa,
-                                     sl, k)
-    _launched("traverse_compact_sliced", launch)
-    want = ref.traverse_compact_sliced(q, mb, pa, sl.starts, sl.widths,
-                                       sl.tl, k)
-    assert torch.equal(idx, want[0]) and torch.equal(cnt, want[2])
-    if table != "shifted":
-        assert cnt[-3:].tolist() == [0, k, k + 1]
+    base = np.concatenate([edge_queries(rng, mbrs[-1]),
+                           rects(rng, 62, -1, 1, 0.1),
+                           strip_queries(mbrs[-1], [0, k, k + 1]),
+                           [[-2, -2, 2, 2]]]).astype(np.float32)
+    big = np.concatenate([rects(rng, 513 - len(base), -1, 1, 0.1), base])
+    L = len(mbrs[-1])
+    for q in (base, base[-1:], big.astype(np.float32)):
+        q = _g(q, cuda)
+        launch, (idx, cnt) = ops.prepare("traverse_compact_sliced", q, mb,
+                                         pa, sl, k)
+        _launched("traverse_compact_sliced", launch)
+        want = ref.traverse_compact_sliced(q, mb, pa, sl.starts, sl.widths,
+                                           sl.tl, k)
+        assert torch.equal(idx, want[0]) and torch.equal(cnt, want[2])
+        if table != "shifted":
+            assert cnt[-1] == L > k
+            if q.shape[0] > 1:
+                assert cnt[-4:].tolist() == [0, k, k + 1, L]
 
 
 @pytest.mark.parametrize("kind", ["fused", "compact"])

@@ -272,6 +272,180 @@ def test_sliced_plain_matches_reference(case):
                                       np.asarray(jnp.where(rval, ridx, 0)))
 
 
+# ---------------------------------------------------------------------------
+# the card kernel's split, rehearsed: count, scan, write
+# ---------------------------------------------------------------------------
+
+def _three_passes(mask, k, S, tl):
+    """``csrc/traverse_compact_sliced.cu``'s three passes in plain
+    PyTorch, over the windowed visited mask [B, L]: each (row, segment)'s
+    visit count (segments of ``ceil(n_tiles / S)`` tiles, the last ones
+    possibly empty), each row's exclusive scan over its segments (first
+    ranks, the total, zeros past it), then each segment's visits written
+    from its first rank, those below ``k``."""
+    B, L = mask.shape
+    per = -(-(-(-L // tl)) // S)
+    bounds = [min(s * per * tl, L) for s in range(S + 1)]
+    counts = torch.stack([mask[:, bounds[s]:bounds[s + 1]].sum(
+        1, dtype=torch.int32) for s in range(S)], 1)              # count
+    first = torch.cumsum(counts, 1, dtype=torch.int32) - counts    # scan
+    cnt = counts.sum(1, dtype=torch.int32)
+    idx = torch.zeros((B, k), dtype=torch.int32)
+    for b in range(B):                                             # write
+        for s in range(S):
+            c, f = int(counts[b, s]), int(first[b, s])
+            if c == 0 or f >= k:
+                continue
+            ids = torch.nonzero(mask[b, bounds[s]:bounds[s + 1]])[:, 0]
+            n = min(c, k - f)
+            idx[b, f:f + n] = (ids[:n] + bounds[s]).to(torch.int32)
+    return idx, cnt
+
+
+_LINE_L, _LINE_TL = 1000, 128
+
+
+def _line_levels(L=_LINE_L, fanout=4):
+    """A hierarchy whose leaf i is the box [i, 0, i + 0.5, 1] and whose
+    parents group ``fanout`` consecutive children: the rect [a, 0.2,
+    b + 0.25, 0.8] visits exactly leaves a..b."""
+    sizes = [L]
+    while sizes[0] > 1:
+        sizes.insert(0, -(-sizes[0] // fanout))
+    x = np.arange(L, dtype=np.float32)
+    mbrs = [None] * len(sizes)
+    mbrs[-1] = np.stack([x, 0 * x, x + 0.5, 0 * x + 1], 1)
+    parents = [np.zeros(n, np.int32) for n in sizes]
+    for lvl in range(len(sizes) - 1, 0, -1):
+        par = np.minimum(np.arange(sizes[lvl]) // fanout,
+                         sizes[lvl - 1] - 1).astype(np.int32)
+        parents[lvl] = par
+        at = np.flatnonzero(np.r_[True, par[1:] != par[:-1]])
+        ch = mbrs[lvl]
+        mbrs[lvl - 1] = np.stack(
+            [np.minimum.reduceat(ch[:, 0], at),
+             np.minimum.reduceat(ch[:, 1], at),
+             np.maximum.reduceat(ch[:, 2], at),
+             np.maximum.reduceat(ch[:, 3], at)], 1).astype(np.float32)
+    return mbrs, parents
+
+
+def _line_table(parents, table):
+    """The reference's and the port's table of the line hierarchy:
+    ``built``, ``degenerate`` or ``shifted`` (every other tile's last
+    window one block on, clipped to the level)."""
+    if table == "degenerate":
+        return _degenerate(parents, _LINE_TL)
+    jt, pt = _tables(parents, _LINE_TL)
+    if table == "built":
+        return jt, pt
+    st = np.asarray(jt.starts).copy()
+    room = -(-len(parents[-2]) // jt.widths[-1]) - 1
+    st[-1, 1::2] = np.minimum(st[-1, 1::2] + 1, room)
+    assert (st != np.asarray(jt.starts)).any()
+    return (jdt.AncestorTable(starts=jnp.asarray(st), widths=jt.widths,
+                              tl=jt.tl),
+            dt.AncestorTable(starts=_t(st), widths=pt.widths, tl=pt.tl))
+
+
+def _line_rows(k, S):
+    """Rows visiting 0, k, k + 1 and all leaves (k and k + 1 capped at
+    L), one whose k-th visit is the first leaf of a segment when the
+    split has one past leaf k - 1, and random intervals."""
+    L = _LINE_L
+    per = -(-(-(-L // _LINE_TL)) // S)
+
+    def span(a, b):
+        return [a, 0.2, b + 0.25, 0.8]
+    rows = [[-10, 0.2, -5, 0.8], span(0, min(k, L) - 1),
+            span(0, min(k + 1, L) - 1), [-1, 0, L + 1, 1]]
+    seg0 = [s * per * _LINE_TL for s in range(1, S)
+            if k - 1 <= s * per * _LINE_TL < L]
+    if seg0:
+        rows.append(span(seg0[0] - k + 1, min(seg0[0] + 3, L - 1)))
+    rng = np.random.default_rng(k + S)
+    for _ in range(8):
+        a, n = int(rng.integers(0, L)), int(rng.integers(0, 3 * k))
+        rows.append(span(a, min(a + n, L - 1)))
+    return np.asarray(rows, np.float32), bool(seg0)
+
+
+@functools.lru_cache(maxsize=None)
+def _line_reference(table, k, S):
+    """The reference's interpret-mode ``traverse_compact_sliced_t`` on the
+    line hierarchy and ``_line_rows(k, S)``: (idx, cnt) as numpy."""
+    mbrs, parents = _line_levels()
+    jt, _ = _line_table(parents, table)
+    q, _ = _line_rows(k, S)
+    qp, imt, ipar, lmt, lpt = jops._sliced_operands(
+        jnp.asarray(q), [jnp.asarray(m) for m in mbrs],
+        [jnp.asarray(p) for p in parents], jt, 8)
+    kidx, kcnt = jtf.traverse_compact_sliced_t(
+        jt.starts, qp.T, imt, ipar, lmt, lpt, k=k, widths=jt.widths, tb=8,
+        tl=jt.tl, interpret=True, tpu_form=False)
+    B = q.shape[0]
+    return np.asarray(kidx)[:B, :k], np.asarray(kcnt)[:B, 0]
+
+
+@pytest.mark.parametrize("S", ["1", "2", "3", "n_tiles", "n_tiles+5"])
+@pytest.mark.parametrize("k", ["16", "64", "512", "L+3"])
+@pytest.mark.parametrize("table", ["built", "degenerate", "shifted"])
+def test_three_passes_match_reference(table, k, S):
+    """The kernel's split (count, scan, write) in plain PyTorch is
+    bit-equal to ``ref.traverse_compact_sliced`` and to the reference's
+    ``traverse_compact_sliced_t`` in interpret mode, for S from one
+    segment to more segments than tiles, on rows visiting 0, k, k + 1 and
+    all leaves and one whose k-th visit opens a segment."""
+    mbrs, parents = _line_levels()
+    L = _LINE_L
+    n_tiles = -(-L // _LINE_TL)
+    k = L + 3 if k == "L+3" else int(k)
+    S = {"n_tiles": n_tiles, "n_tiles+5": n_tiles + 5}.get(S) or int(S)
+    _, pt = _line_table(parents, table)
+    q, boundary = _line_rows(k, S)
+    tq, lm, lp = _t(q), [_t(m) for m in mbrs], [_t(p) for p in parents]
+    mask = ref.traverse_fused_sliced(tq, lm, lp, pt.starts, pt.widths,
+                                     pt.tl)
+    idx, cnt = _three_passes(mask, k, S, _LINE_TL)
+    widx, _, wcnt = ref.traverse_compact_sliced(tq, lm, lp, pt.starts,
+                                                pt.widths, pt.tl, k)
+    assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+    kidx, kcnt = _line_reference(table, k, S)
+    np.testing.assert_array_equal(cnt.numpy(), kcnt)
+    valid = np.arange(k)[None, :] < kcnt[:, None]
+    np.testing.assert_array_equal(idx.numpy(), np.where(valid, kidx, 0))
+    if table != "shifted":
+        assert cnt[:4].tolist() == [0, min(k, L), min(k + 1, L), L]
+        if boundary:       # its k-th visit is its segment's first leaf
+            per = -(-n_tiles // S)
+            assert int(idx[4, k - 1]) % (per * _LINE_TL) == 0
+    assert boundary == (S > 1 and k < L and
+                        (S < n_tiles or k - 1 <= (n_tiles - 1) * _LINE_TL))
+
+
+@pytest.mark.parametrize("B", [512, 513, 100, 16, 1])
+def test_compact_sliced_segments(B):
+    """The segment count is a pure function of the shapes: 1 <= S <=
+    n_tiles, no CTA walks more than ceil(n_tiles / S) tiles, and the
+    grid of each pass fills the card (COMPACT_SLICED_CTAS_PER_SM CTAs an
+    SM) on the 40M-point index, whose narrow (k 64) and wide (k 512)
+    batches both have 512 rows."""
+    tile = ops.COMPACT_SLICED_QUERY_TILE
+    want = ops.SM_COUNT * ops.COMPACT_SLICED_CTAS_PER_SM
+    for n_tiles in (-(-449_567 // 512), -(-1_500_000 // 512), 8, 1):
+        S = ops.compact_sliced_segments(B, n_tiles)
+        assert 1 <= S <= n_tiles
+        groups = -(-B // tile)
+        # the target, but for the tiles' granularity: over half of it
+        assert 2 * groups * S > min(want, groups * n_tiles)
+        assert groups * (S - 1) < want or S == 1
+        per = -(-n_tiles // S)
+        assert (S - 1) * per < n_tiles       # no segment is empty
+    if B == 512:
+        assert ops.compact_sliced_segments(B, 879) == 33
+        assert -(-B // tile) == 64 and -(-879 // 33) == 27
+
+
 @pytest.mark.parametrize("B,N", [(40, 700), (3, 513), (300, 1)])
 def test_mbr_intersect_matches_reference(B, N):
     """Plain ``mbr_intersect`` (and ``ops.mbr_intersect`` on CPU tensors)
@@ -342,7 +516,7 @@ def test_walk_route_at_the_port_shapes():
     assert degen[-1] == 16_896
     assert ops.walk_smem("fused", "sliced", sizes, degen, 512) == 270_336
     assert r("fused", sizes, degen, 512) == "per_level"
-    assert ops.walk_smem("compact", "sliced", sizes, degen, 512) == 69_888
+    assert ops.walk_smem("compact", "sliced", sizes, degen, 512) == 17_920
     assert r("compact", sizes, degen, 512) == "sliced"
     for kind in ("fused", "compact"):
         assert r(kind, [64]) == "mbr_intersect"
