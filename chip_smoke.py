@@ -18,13 +18,16 @@ Phases, each failing the run (non-zero exit) on its own error:
 4. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it plus edge rows, and time both (the
    ancestor-sliced walks with the deployed tree's own table, also against
-   the full-walk kernels; mbr_intersect on every level);
+   the full-walk kernels; mbr_intersect on every level; leaf_refine's
+   mask and slot counts at the narrow K 64 and at the join's wide K 512;
+   forest_infer on the router's features, which it gathers itself);
 5. stream the range workload through ``hybrid_query`` in Hilbert order
    (batch 512, narrow ``max_visited`` 64, wide tier x8) with every launch
    count reset just before and read just after; check the ``# oracle``
    against the workload labels and 512 sampled queries against f32
    brute-force containment; serve the same stream in arrival order as a
-   comparison (reported, not gated) and profile both;
+   comparison (reported, not gated) and profile both (device busy, idle,
+   device activities a batch);
 6. on the same index, serve a kNN, a spatial-join and a point stream
    (4096 queries each, one timed repetition), each with its launch
    counts reset and read around it and its oracle at 0 mismatches;
@@ -302,29 +305,41 @@ def kernel_checks(idx, args, dev, inserts) -> list:
         lambda: ref.traverse_fused(q, mb, pa),
         B * 16 + nodes * 20 + B * L, tests * 4)
 
-    # -- leaf_refine: the narrow R path's slot table, with edge rows
+    # -- leaf_refine, mask and slot counts: the narrow R path's slot table
+    #    with edge rows, then the batch at the join's wide tier (K 512:
+    #    the join re-serves every row wide)
     K = args.max_visited
     li, valid, _ = traversal.compact_mask_counted(want, K)
     li, valid = li.clone(), valid.clone()
-    li[3, :4] = torch.tensor([-1, L, L + 9, 0], device=dev)
+    li[3, :6] = torch.tensor([-1, L, L + 9, 0, -3, L + 2], device=dev)
     valid[3, :4] = False                                 # padded slots
+    valid[3, 4:6] = True               # out of range, clamped by the kernel
     valid[4] = False                                     # empty row
+    wi, wv, _ = ops.traverse_compact(q, mb, pa, K * args.wide_factor)
     M = tree.leaf_entries.shape[1]
-    safe = torch.clamp(li, 0, L - 1)
-    launch, inside = ops.prepare("leaf_refine", q, tree.leaf_entries, safe,
-                                 valid)
-    launch()
     ex, ey = tree.leaf_entries[..., 0], tree.leaf_entries[..., 1]
-    want_in = ref.leaf_refine(q, ex, ey, safe, valid)
-    mism = int((inside != want_in).sum())
-    check(mism == 0, f"leaf_refine: {mism} mismatches")
-    check(not bool(inside[4].any()), "leaf_refine: empty row matched")
-    n_valid = int(valid.sum())
-    n_leaves = int(torch.unique(safe[valid]).numel())
-    row("leaf_refine", mism, launch,
-        lambda: ref.leaf_refine(q, ex, ey, safe, valid),
-        B * 16 + B * K * 5 + n_leaves * M * 8 + B * K * M,
-        n_valid * M * 4)
+    tiers = []
+    for tier, (ids, ok) in enumerate(((li, valid), (wi, wv))):
+        Kt = ids.shape[1]
+        launch, (inside, cnt) = ops.prepare("leaf_refine", q,
+                                            tree.leaf_entries, ids, ok)
+        launch()
+        want_in, want_cnt = ref.leaf_refine_counted(q, ex, ey, ids, ok)
+        mism = int((inside != want_in).sum()) + int((cnt != want_cnt).sum())
+        check(mism == 0, f"leaf_refine (K {Kt}): {mism} mismatches (mask "
+              "and counts, bit-exact)")
+        check(tier or not bool(inside[4].any()),
+              "leaf_refine: empty row matched")
+        n_leaves = int(torch.unique(torch.clamp(ids, 0, L - 1)[ok]).numel())
+        tiers.append(kernel_row(
+            "leaf_refine", mism, launch,
+            lambda ids=ids, ok=ok: ref.leaf_refine_counted(q, ex, ey, ids,
+                                                           ok),
+            B * 16 + B * Kt * 5 + n_leaves * M * 8 + B * Kt * M + B * Kt * 4,
+            int(ok.sum()) * M * 4, label=f" (K {Kt}, {n_leaves} leaves)"))
+    rows.append(tiers[0])
+    rows[-1]["wide"] = {key: tiers[1][key] for key in
+                        ("ms", "plain_ms", "bound_ms", "bound_by")}
 
     # -- mlp_predict_compact: the deployed bank on this batch
     ait = hyb.ait
@@ -363,23 +378,24 @@ def kernel_checks(idx, args, dev, inserts) -> list:
         + B * kp * 4 + B * 4,
         n_slots * 2 * (F * H + H * Cl), max_abs_err=max_err)
 
-    # -- forest_infer: the router on this batch, with features exactly on
-    #    their thresholds
+    # -- forest_infer: the router on this batch's features (the kernel
+    #    gathers them), some exactly on their thresholds
     rt = hyb.router
     feats = router_features(q)
     feats[5, rt.feat_idx[0, 0]] = rt.thresh[0, 0]
     feats[6, rt.feat_idx[1, 3]] = rt.thresh[1, 3]
-    sel = feats[:, rt.feat_idx.long()].contiguous()
-    launch, votes = ops.prepare("forest_infer", sel, rt.thresh, rt.tables)
+    launch, votes = ops.prepare("forest_infer", feats, rt.feat_idx,
+                                rt.thresh, rt.tables)
     launch()
-    want_v = ref.forest_infer(sel, rt.thresh, rt.tables)
+    plain = lambda: ref.forest_infer(  # noqa: E731
+        ref.forest_select(feats, rt.feat_idx), rt.thresh, rt.tables)
+    want_v = plain()
     mism = int((votes != want_v).sum())
     check(mism == 0, f"forest_infer: {mism} mismatches (bit-exact)")
     T, D = rt.feat_idx.shape
     Cr = rt.tables.shape[-1]
-    row("forest_infer", mism, launch,
-        lambda: ref.forest_infer(sel, rt.thresh, rt.tables),
-        B * T * D * 4 + T * D * 4 + rt.tables.numel() * 4 + B * Cr * 4,
+    row("forest_infer", mism, launch, plain,
+        feats.numel() * 4 + T * D * 8 + rt.tables.numel() * 4 + B * Cr * 4,
         B * T * (D + Cr),
         max_abs_err=float((votes - want_v).abs().max()))
     rows.append(spatial_key_check(idx, dev))
@@ -1053,12 +1069,13 @@ def schedule_cost(queries, batch: int, dev) -> None:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
 
 
-def profile_stream(label: str, run):
+def profile_stream(label: str, run, batches: int | None = None):
     """One more full stream (``run()``) under ``torch.profiler`` (device
-    activity only): wall time, device busy share, and the device time by
-    kernel, the port's CUDA kernels' share among it. Returns ``(run()'s
-    result, busy ms, {kernel name: ms})``, busy None without device
-    activity."""
+    activity only): wall time, device busy share, the device activities
+    (and their number a batch, given the stream's ``batches``) and the
+    device time by kernel, the port's CUDA kernels' share among it.
+    Returns ``(run()'s result, busy ms, {kernel name: ms})``, busy None
+    without device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import cuda as kcuda
@@ -1079,11 +1096,14 @@ def profile_stream(label: str, run):
     busy = sum(by_name.values())
     ours = sum(v for n, v in by_name.items()
                if any(f"{k}_kernel" in n for k in kcuda.KERNELS))
+    n_act = len(cuda_events(prof))
+    per = f" ({n_act / batches:.1f} a batch over {batches} batches)" \
+        if batches else ""
     print(f"# profile of one {label} stream (CUPTI): wall {wall:.2f} ms, "
           f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, idle "
           f"{100 - 100 * busy / wall:.1f}%), the port's CUDA kernels "
           f"{ours:.3f} ms ({100 * ours / max(busy, 1e-9):.1f}% of busy), "
-          f"{len(cuda_events(prof))} device activities")
+          f"{n_act} device activities{per}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         print(f"    {ms:8.3f} ms  {name[:100]}")
@@ -1839,9 +1859,11 @@ def main(argv=None) -> int:
     rates["range (arrival order)"] = \
         f"{rep_none.n_queries / dt_none:.0f} queries/s"
     profile_stream("range (hilbert)",
-                   serve.range_stream(idx.hybrid, idx.workload, args))
+                   serve.range_stream(idx.hybrid, idx.workload, args),
+                   report.n_batches + report.wide_batches)
     profile_stream("range (arrival order)",
-                   serve.range_stream(idx.hybrid, idx.workload, args_none))
+                   serve.range_stream(idx.hybrid, idx.workload, args_none),
+                   rep_none.n_batches + rep_none.wide_batches)
 
     # -- kNN, join and point streams on the same index
     for qt in ("knn", "join", "point"):

@@ -87,8 +87,8 @@ def refine_leaves(tree: DeviceTree, queries: torch.Tensor,
     Guarantees no false positives (paper §III-C): every reported entry is
     re-checked against the query rectangle.
     """
-    inside = kops.leaf_refine(queries, tree.leaf_entries, leaf_idx, valid)
-    counts = torch.sum(inside.to(torch.int32), dim=-1, dtype=torch.int32)
+    inside, counts = kops.leaf_refine_counted(queries, tree.leaf_entries,
+                                              leaf_idx, valid)
     return RefineResult(counts=counts, inside=inside, leaf_idx=leaf_idx,
                         valid=valid)
 

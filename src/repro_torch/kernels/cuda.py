@@ -140,7 +140,7 @@ KERNELS = {
         "src/repro/kernels/traverse_fused.py:495"),
     "leaf_refine": Kernel(
         "leaf_refine", "leaf_refine_launch",
-        [_P, _P, _I, _P, _P, _I, _I, _P, _P],
+        [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
         "src/repro/kernels/leaf_refine.py:66"),
     "mlp_predict_compact": Kernel(
         "mlp_predict_compact", "mlp_predict_compact_launch",
@@ -148,7 +148,7 @@ KERNELS = {
         "src/repro/kernels/mlp_infer.py:223"),
     "forest_infer": Kernel(
         "forest_infer", "forest_infer_launch",
-        [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+        [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
         "src/repro/kernels/forest_infer.py:112"),
     "spatial_key": Kernel(
         "spatial_key", "spatial_key_launch",

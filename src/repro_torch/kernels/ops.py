@@ -49,6 +49,7 @@ COMPACT_SLICED_QUERY_TILE = 8   # kQT in csrc/traverse_compact_sliced.cu
 COMPACT_SLICED_ROUND_WORDS = 16  # kRound / 32 there: bitmap words a row
 DELTA_QUERY_TILE = 4      # kQT in csrc/delta_probe.cu
 FOREST_QUERY_TILE = 32    # kQT in csrc/forest_infer_cells.cu
+ROUTER_QUERY_TILE = 8     # kQT in csrc/forest_infer.cu
 WKV6_CHUNK = 64           # the reference's DEF_CHUNK (kernels/wkv6.py)
 WKV6_HEAD = 64            # kD in csrc/wkv6.cu: its dk = dv (smaller pad)
 CURVES = {"morton": 0, "hilbert": 1}
@@ -79,6 +80,13 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 def _c(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
+
+
+def _c16(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``_c``, copied when its data does not start on 16 bytes (a view at
+    an odd offset): for kernels that load 16 bytes a lane."""
+    t = _c(t, dtype)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launcher(name: str, device: torch.device, *args) -> Callable[[], None]:
@@ -295,15 +303,20 @@ def _prep_mbr_intersect(queries, mbrs):
     return launch, out
 
 
-def _prep_leaf_refine(queries, leaf_entries, safe_idx, valid):
-    B, K = safe_idx.shape
-    M = leaf_entries.shape[1]
-    out = torch.empty((B, K, M), dtype=torch.bool, device=queries.device)
+def _prep_leaf_refine(queries, leaf_entries, leaf_idx, valid):
+    B, K = leaf_idx.shape
+    L, M = leaf_entries.shape[:2]
+    if L <= 0 or M <= 0 or M % 4:
+        raise ValueError(f"leaf_refine: the kernel takes leaves of a "
+                         f"positive multiple of 4 entries, got [{L}, {M}]")
+    dev = queries.device
+    inside = torch.empty((B, K, M), dtype=torch.bool, device=dev)
+    counts = torch.empty((B, K), dtype=torch.int32, device=dev)
     launch = _launcher(
-        "leaf_refine", queries.device, _c(queries, torch.float32),
-        _c(leaf_entries, torch.float32), M, _c(safe_idx, torch.int32),
-        _c(valid, torch.bool), B, K, out)
-    return launch, out
+        "leaf_refine", dev, _c16(queries, torch.float32),
+        _c16(leaf_entries, torch.float32), L, M, _c(leaf_idx, torch.int32),
+        _c(valid, torch.bool), B, K, inside, counts)
+    return launch, (inside, counts)
 
 
 def _prep_mlp_predict_compact(x, cid, slot_ok, bank, n_leaves, k, threshold):
@@ -326,17 +339,27 @@ def _prep_mlp_predict_compact(x, cid, slot_ok, bank, n_leaves, k, threshold):
     return launch, (idx, cnt)
 
 
-def _prep_forest_infer(sel, thresh, tables):
-    B, T, D = sel.shape
+def _prep_forest_infer(features, feat_idx, thresh, tables):
+    B, F = features.shape
+    T, D = feat_idx.shape
     C = tables.shape[-1]
-    if tuple(tables.shape[:2]) != (T, 2 ** D):
-        raise ValueError(f"forest tables {tuple(tables.shape)} do not match "
-                         f"T={T}, D={D}")
-    out = torch.empty((B, C), dtype=torch.float32, device=sel.device)
+    if not 1 <= D <= 24:
+        raise ValueError(f"forest_infer: depth {D} not in [1, 24]")
+    if tuple(thresh.shape) != (T, D) or \
+            tuple(tables.shape[:2]) != (T, 2 ** D):
+        raise ValueError(f"forest_infer: thresh {tuple(thresh.shape)} / "
+                         f"tables {tuple(tables.shape)} do not match "
+                         f"feat_idx {(T, D)}")
+    smem = (2 * T * D + ROUTER_QUERY_TILE * (F + T * C)) * 4
+    if smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"forest_infer: {T} trees of {C} classes need "
+                         f"{smem} bytes of shared memory (> "
+                         f"{MAX_DYNAMIC_SMEM})")
+    out = torch.empty((B, C), dtype=torch.float32, device=features.device)
     launch = _launcher(
-        "forest_infer", sel.device, _c(sel, torch.float32),
-        _c(thresh, torch.float32), _c(tables, torch.float32), B, T, D, C,
-        out)
+        "forest_infer", features.device, _c(features, torch.float32), B, F,
+        _c(feat_idx, torch.int32), _c(thresh, torch.float32),
+        _c(tables, torch.float32), T, D, C, out)
     return launch, out
 
 
@@ -553,19 +576,29 @@ def traverse_compact(queries: torch.Tensor,
     return idx, valid, cnt
 
 
+def leaf_refine_counted(queries: torch.Tensor, leaf_entries: torch.Tensor,
+                        leaf_idx: torch.Tensor, valid: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """queries [B,4], leaf_entries [L,M,2], leaf_idx [B,K], valid [B,K]
+    → ``(inside [B, K, M] bool, counts [B, K] i32)``, ``counts`` the
+    integer sum of ``inside`` over M. Slot ids are clamped into [0, L)
+    (padded slots are masked by ``valid``). On the card this is one
+    launch, which clamps and counts in the same pass; M must then be a
+    multiple of 4 (``flatten`` pads it to one of 8)."""
+    if not _on_cuda(queries, leaf_entries, leaf_idx, valid):
+        return ref.leaf_refine_counted(queries, leaf_entries[..., 0],
+                                       leaf_entries[..., 1], leaf_idx, valid)
+    launch, (inside, counts) = _prep_leaf_refine(queries, leaf_entries,
+                                                 leaf_idx, valid)
+    if counts.numel():
+        launch()
+    return inside, counts
+
+
 def leaf_refine(queries: torch.Tensor, leaf_entries: torch.Tensor,
                 leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """queries [B,4], leaf_entries [L,M,2], leaf_idx [B,K], valid [B,K]
-    → inside [B, K, M] bool. Slot ids are clamped into [0, L) first
-    (padded slots are masked by ``valid``)."""
-    safe_idx = torch.clamp(leaf_idx, 0, leaf_entries.shape[0] - 1)
-    if not _on_cuda(queries, leaf_entries, leaf_idx, valid):
-        return ref.leaf_refine(queries, leaf_entries[..., 0],
-                               leaf_entries[..., 1], safe_idx, valid)
-    launch, out = _prep_leaf_refine(queries, leaf_entries, safe_idx, valid)
-    if out.numel():
-        launch()
-    return out
+    """The mask of ``leaf_refine_counted``: inside [B, K, M] bool."""
+    return leaf_refine_counted(queries, leaf_entries, leaf_idx, valid)[0]
 
 
 def knn_browse(centers: torch.Tensor, leaf_entries: torch.Tensor,
@@ -677,12 +710,15 @@ def mlp_predict_compact(queries: torch.Tensor, bank, cell_ids: torch.Tensor,
 
 def forest_infer(features: torch.Tensor, feat_idx: torch.Tensor,
                  thresh: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """features [B,F], feat_idx [T,D] i32, thresh [T,D], tables [T,2^D,C]
-    → scores [B,C] (votes summed over trees in ascending order)."""
-    sel = features[:, feat_idx.long()]            # [B, T, D] pre-gather
-    if not _on_cuda(sel, thresh, tables):
-        return ref.forest_infer(sel, thresh, tables)
-    launch, out = _prep_forest_infer(sel, thresh, tables)
+    """features [B,F], feat_idx [T,D] i32 (clamped into [0, F), as a
+    gather does), thresh [T,D], tables [T,2^D,C] → scores [B,C] (votes
+    summed over trees in ascending order). On the card the kernel gathers
+    the features itself: one launch, and the [B, T, D] gather never
+    exists."""
+    if not _on_cuda(features, feat_idx, thresh, tables):
+        return ref.forest_infer(ref.forest_select(features, feat_idx),
+                                thresh, tables)
+    launch, out = _prep_forest_infer(features, feat_idx, thresh, tables)
     if out.numel():
         launch()
     return out

@@ -123,6 +123,18 @@ def leaf_refine(queries: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor,
     return ok & valid.to(torch.bool)[:, :, None]
 
 
+def leaf_refine_counted(queries: torch.Tensor, ex: torch.Tensor,
+                        ey: torch.Tensor, leaf_idx: torch.Tensor,
+                        valid: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``leaf_refine`` on slot ids clamped into [0, L), and each slot's
+    hit count: → (inside [B,K,M] bool, counts [B,K] i32)."""
+    safe = torch.clamp(leaf_idx, 0, ex.shape[0] - 1)
+    inside = leaf_refine(queries, ex, ey, safe, valid)
+    return inside, torch.sum(inside.to(torch.int32), dim=-1,
+                             dtype=torch.int32)
+
+
 def knn_browse(centers: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor,
                leaf_idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """centers [B,3] (cx, cy, r²), ex/ey [L,M], leaf_idx/valid [B,K] →
@@ -247,6 +259,14 @@ def forest_infer(sel: torch.Tensor, thresh: torch.Tensor,
 
 
 
+def forest_select(features: torch.Tensor, feat_idx: torch.Tensor
+                  ) -> torch.Tensor:
+    """features [B,F], feat_idx [T,D] → the trees' features [B,T,D] f32,
+    indices clamped into [0, F) as a gather does."""
+    fi = torch.clamp(feat_idx.long(), 0, features.shape[1] - 1)
+    return features.to(torch.float32)[:, fi]
+
+
 def forest_infer_percell(sel: torch.Tensor, thresh: torch.Tensor,
                          tables: torch.Tensor) -> torch.Tensor:
     """Per-tree votes (no cross-tree sum): sel [B,T,D], thresh [T,D],
@@ -268,12 +288,10 @@ def forest_infer_cells(features: torch.Tensor, feat_idx: torch.Tensor,
     an explicit loop — the order the TPU kernel's grid (T innermost) and
     the CUDA kernel accumulate in. Feature indices are clamped into
     [0, F), as a gather does."""
-    B, F = features.shape
-    CT, D = feat_idx.shape
-    T = CT // n_cells
-    fi = torch.clamp(feat_idx.long(), 0, F - 1)
-    sel = features.to(torch.float32)[:, fi]                    # [B, C·T, D]
-    per = forest_infer_percell(sel, thresh, tables)
+    B = features.shape[0]
+    T = feat_idx.shape[0] // n_cells
+    per = forest_infer_percell(forest_select(features, feat_idx), thresh,
+                               tables)                        # [B, C·T, Cl]
     per = per.reshape(B, n_cells, T, tables.shape[-1])
     out = per[:, :, 0]
     for t in range(1, T):

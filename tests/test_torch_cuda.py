@@ -33,6 +33,45 @@ from helpers.torch_inputs import (  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 
+# The counted refine's and the router forest's inputs, shared with
+# tests/test_torch_kernels.py (which imports them from here: this file
+# imports only numpy and torch).
+def refine_inputs(rng, L, M, B, K):
+    """Refine inputs ``(queries [B, 4], entries [L, M, 2], leaf_idx [B, K],
+    valid [B, K])``: leaves filled to 3/4 of M (+inf past), random slots,
+    and the edge rows: row 1's first slot names leaf 4 with a degenerate
+    query on its entry 2; row 2 holds out-of-range ids on masked slots;
+    row 3 is all invalid; row 4 holds out-of-range ids on valid slots
+    (they are clamped into [0, L), so they name leaves 0 and L - 1)."""
+    ent = rng.uniform(0, 1, (L, M, 2)).astype(np.float32)
+    ent[:, max(3, 3 * M // 4):] = np.inf
+    q = rects(rng, B, 0, 0.8, 0.4)
+    q[1] = [ent[4, 2, 0], ent[4, 2, 1], ent[4, 2, 0], ent[4, 2, 1]]
+    idx = rng.integers(0, L, (B, K)).astype(np.int32)
+    valid = rng.uniform(size=(B, K)) < 0.75
+    idx[1, 0], valid[1, 0] = 4, True
+    idx[2, :3] = [-1, L, L + 7][:K]
+    valid[2, :3] = False
+    valid[3] = False                                    # empty row
+    idx[4, :2] = [-3, L + 2][:K]
+    valid[4, :2] = True
+    return q, ent, idx, valid
+
+
+def router_inputs(rng, B, T, D, C, F=6):
+    """Forest inputs ``(features [B, F], feat_idx [T, D], thresh [T, D],
+    tables [T, 2^D, C])`` with queries 0 and 1 exactly on a threshold
+    (the split is a strict >: they go left)."""
+    x = rng.normal(size=(B, F)).astype(np.float32)
+    fi = rng.integers(0, F, (T, D)).astype(np.int32)
+    th = rng.normal(size=(T, D)).astype(np.float32)
+    if B > 1:
+        x[0, fi[0, 0]] = th[0, 0]
+        x[1, fi[-1, -1]] = th[-1, -1]
+    tb = rng.uniform(0, 1, (T, 2 ** D, C)).astype(np.float32)
+    return x, fi, th, tb
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -98,6 +137,58 @@ def test_forest_infer_kernel(cuda):
     got = _launched("forest_infer", lambda: ops.forest_infer(*args))
     want = ref.forest_infer(args[0][:, args[1].long()], args[2], args[3])
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M", [8, 16, 128])
+@pytest.mark.parametrize("K", [1, 64, 512])
+def test_leaf_refine_counted_kernel(cuda, M, K):
+    """Mask and counts in one launch, bit-equal to the plain version on
+    the edge rows (an all-invalid row, out-of-range ids on masked and on
+    valid slots: the kernel's clamp is ``torch.clamp``'s), the counts
+    equal to the mask's integer sum; ``ops.leaf_refine`` is the same
+    launch's mask."""
+    rng = np.random.default_rng(M + K)
+    args = [_g(a, cuda) for a in refine_inputs(rng, 400, M, 96, K)]
+    got, counts = _launched("leaf_refine",
+                            lambda: ops.leaf_refine_counted(*args))
+    q, ent, idx, valid = args
+    want, want_counts = ref.leaf_refine_counted(q, ent[..., 0], ent[..., 1],
+                                                idx, valid)
+    assert torch.equal(got, want) and torch.equal(counts, want_counts)
+    assert torch.equal(counts, got.to(torch.int32).sum(-1, dtype=torch.int32))
+    assert counts.dtype == torch.int32 and not got[3].any()
+    assert bool(got[1, 0, 2])
+    mask = _launched("leaf_refine", lambda: ops.leaf_refine(*args))
+    assert torch.equal(mask, want)
+
+
+def test_leaf_refine_refuses_m_not_multiple_of_4(cuda):
+    """Leaves of 6 entries: the wrapper raises before any launch."""
+    rng = np.random.default_rng(6)
+    args = [_g(a, cuda) for a in refine_inputs(rng, 40, 6, 16, 8)]
+    before = kcuda.KERNELS["leaf_refine"].launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.leaf_refine_counted(*args)
+    assert kcuda.KERNELS["leaf_refine"].launches == before
+
+
+@pytest.mark.parametrize("T,D,C", [(16, 6, 1), (16, 6, 37), (4, 5, 3),
+                                   (16, 12, 1), (1, 1, 1)])
+def test_forest_infer_gathering_kernel(cuda, T, D, C):
+    """One launch that gathers its own features, bit-equal to the plain
+    gather and vote sum: the router's shape (tables staged in shared
+    memory), 37 classes and 16 trees of depth 12 (tables read from
+    global memory), 700 queries (not a multiple of the 8-query tile),
+    two on a threshold; an empty batch launches nothing."""
+    rng = np.random.default_rng(T + 10 * D + 100 * C)
+    x, fi, th, tb = (_g(a, cuda) for a in router_inputs(rng, 700, T, D, C))
+    got = _launched("forest_infer", lambda: ops.forest_infer(x, fi, th, tb))
+    assert torch.equal(got, ref.forest_infer(ref.forest_select(x, fi), th,
+                                             tb))
+    before = kcuda.KERNELS["forest_infer"].launches
+    empty = ops.forest_infer(x[:0], fi, th, tb)
+    assert tuple(empty.shape) == (0, C)
+    assert kcuda.KERNELS["forest_infer"].launches == before
 
 
 @pytest.mark.parametrize("T", [1, 4])

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import traversal as jtrav  # noqa: E402
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro.kernels import spatial_key as jskey  # noqa: E402
 from repro_torch.data.synth import strip_queries  # noqa: E402
@@ -27,6 +28,7 @@ from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
 # environment may carry another top-level ``tests`` package
 from helpers.torch_inputs import (  # noqa: E402
     edge_bank, edge_queries, key_centres, knn_inputs, levels, rects)
+from test_torch_cuda import refine_inputs, router_inputs  # noqa: E402
 
 NEAR = 1e-5
 
@@ -103,6 +105,47 @@ def test_forest_infer_matches_jax_bit_exact():
                                         jnp.asarray(th), jnp.asarray(tb)))
     got = tops.forest_infer(_t(x), _t(fi), _t(th), _t(tb)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("M,K", [(16, 8), (8, 1), (128, 64)])
+def test_leaf_refine_counted_matches_jax(M, K):
+    """The counted refine, bit-equal to the JAX package on the edge rows
+    (an all-invalid row; out-of-range ids, masked and valid): the mask to
+    its interpret-mode kernel, the counts to its ``refine_leaves``."""
+    rng = np.random.default_rng(100 + M + K)
+    q, ent, idx, valid = refine_inputs(rng, 50, M, 24, K)
+    jq, jent, jidx, jvalid = map(jnp.asarray, (q, ent, idx, valid))
+    want = np.asarray(jops.leaf_refine(jq, jent, jidx, jvalid))
+    want_counts = np.asarray(jtrav.refine_leaves(
+        _Tree(jent), jq, jidx, jvalid, use_kernel=True).counts)
+    got, counts = tops.leaf_refine_counted(_t(q), _t(ent), _t(idx),
+                                           _t(valid))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(
+        tops.leaf_refine(_t(q), _t(ent), _t(idx), _t(valid)).numpy(), want)
+    assert not got[3].any() and got[1, 0, 2] and counts[1, 0] >= 1
+
+
+@pytest.mark.parametrize("T", [1, 16])
+@pytest.mark.parametrize("D", [1, 8])
+@pytest.mark.parametrize("C", [1, 3])
+def test_forest_infer_on_thresholds_matches_jax(T, D, C):
+    """Summed votes, bit-equal, with two queries exactly on a threshold,
+    for one tree and sixteen, depth 1 and 8, one class and three."""
+    rng = np.random.default_rng(T + 10 * D + 100 * C)
+    x, fi, th, tb = router_inputs(rng, 37, T, D, C)
+    want = np.asarray(jops.forest_infer(*map(jnp.asarray, (x, fi, th, tb))))
+    got = tops.forest_infer(_t(x), _t(fi), _t(th), _t(tb)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+class _Tree:
+    """The one field of a ``DeviceTree`` that ``refine_leaves`` reads."""
+
+    def __init__(self, leaf_entries):
+        self.leaf_entries = leaf_entries
 
 
 class _Bank:
