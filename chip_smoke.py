@@ -20,6 +20,7 @@ Phases, each failing the run (non-zero exit) on its own error:
    ancestor-sliced walks with the deployed tree's own table, also against
    the full-walk kernels; mbr_intersect on every level; leaf_refine's
    mask and slot counts at the narrow K 64 and at the join's wide K 512;
+   traverse_compact on the batch at k 64 and at the wide k 512;
    forest_infer on the router's features, which it gathers itself);
 5. stream the range workload through ``hybrid_query`` in Hilbert order
    (batch 512, narrow ``max_visited`` 64, wide tier x8) with every launch
@@ -77,7 +78,9 @@ Phases, each failing the run (non-zero exit) on its own error:
    traverse_compact_sliced bit-equal to its plain version and timed
    (each of its count, scan and write kernels, CUPTI) on the kNN
    stream's first narrow batch (k 64) and first wide batch (the rows the
-   narrow tier flags, at twice the radius, k 512);
+   narrow tier flags, at twice the radius, k 512); on the same batches,
+   for information, the full compact walk (off this index's rung),
+   bit-equal to it and timed;
 12. the rwkv6-3b serving path at the published width (32 layers, d_model
    2560, 40 heads of 64, d_ff 8960, vocab 65536; ``init_params`` in bf16
    from ``torch.Generator`` seed 0, on the card): ``forward`` at [1, 32768]
@@ -686,6 +689,21 @@ def large_index(dev, card, points: int):
             label=f" (large index, {tier}: B {B}, k {k}, "
                   f"{ops.compact_sliced_segments(B, sl.n_tiles)} segments, "
                   f"mean {float(kcnt.float().mean()):.1f} visited)"))
+        # for information (ROADMAP: the open question of this index's
+        # rung): the full compact walk on the same batch, bit-equal too
+        flaunch, (fidx, fcnt) = ops.prepare("traverse_compact", qb, mb, pa,
+                                            k, tree.wpack)
+        flaunch()
+        check(torch.equal(fidx, pidx) and torch.equal(fcnt, pcnt),
+              f"traverse_compact (large index, {tier}) differs from the "
+              "sliced walk")
+        full = kernel_means(profiled_events(flaunch,
+                                            "traverse_compact_kernel"))
+        print(f"  traverse_compact (the full walk, off this index's rung; "
+              f"large index, {tier}, k {k}): {sum(full.values()):.4f} ms "
+              f"(cupti; {event_ms(flaunch):.4f} ms between events; "
+              f"{ops.walk_smem('compact', 'full', sizes)} bytes of shared "
+              f"memory, {ops.compact_warps(max(sizes[:-1]))} warps a CTA)")
     row, wide = rows
     row["wide"] = {key: wide[key] for key in
                    ("ms", "plain_ms", "bound_ms", "bound_by", "pass_ms")
@@ -827,12 +845,22 @@ def traverse_compact_check(idx, q, dev) -> dict:
     print(f"  traverse_compact: bit-equal at k in {ks} (strip rows "
           f"visit 0, k, k + 1) and on a single-level tree "
           f"({int(kcnt.sum())} of {q.shape[0]} rows hit its leaf)")
-    launch, (kidx, kcnt) = ops.prepare("traverse_compact", q, mb, pa, 64)
+    # timed on the batch at the narrow k 64 and at the wide k 512 (the
+    # join's wide tier re-serves these rows at k 512)
     tests, nodes = walk_work(q, mb, pa)
-    return kernel_row("traverse_compact", 0, launch,
-                      lambda: ref.traverse_compact(q, mb, pa, 64),
-                      q.shape[0] * 16 + nodes * 20 + q.shape[0] * 65 * 4,
-                      tests * 4)
+    B = q.shape[0]
+    tiers = []
+    for k in (64, 512):
+        launch, _ = ops.prepare("traverse_compact", q, mb, pa, k, tree.wpack)
+        tiers.append(kernel_row(
+            "traverse_compact", 0, launch,
+            lambda k=k: ref.traverse_compact(q, mb, pa, k),
+            B * 16 + nodes * 20 + B * (k + 1) * 4, tests * 4,
+            label=f" (k {k})"))
+    row, wide = tiers
+    row["wide"] = {key: wide[key] for key in
+                   ("ms", "plain_ms", "bound_ms", "bound_by")}
+    return row
 
 
 def knn_browse_check(idx, args, dev) -> dict:

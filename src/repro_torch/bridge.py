@@ -4,7 +4,7 @@
 by attribute and converts each with ``np.asarray`` — so it accepts the
 JAX package's arrays without importing JAX — then builds the port's
 ``HybridTree`` on ``device``: tree levels, leaf entries and ids, the
-ancestor table, the grid,
+ancestor table, the walk pack (``build_walk_pack``), the grid,
 ``cell_ok``, the MLP, kNN or forest bank and the router.
 ``fit_state_from_reference(s)`` carries a reference ``build.FitState``
 across (host numpy, lists of ``bytes`` and ``frozenset``s), so a port
@@ -27,7 +27,7 @@ from repro_torch.core.classifiers.knn import KNNBank
 from repro_torch.core.classifiers.mlp import MLPBank
 from repro_torch.core.classifiers.router import Router
 from repro_torch.core.device_tree import (
-    AncestorTable, DeviceTree, Level, build_ancestor_table)
+    AncestorTable, DeviceTree, Level, build_ancestor_table, build_walk_pack)
 from repro_torch.core.grid import Grid
 from repro_torch.core.hybrid import HybridTree
 
@@ -62,13 +62,15 @@ def _table_from_reference(sl, parents, dev: torch.device
 
 def tree_from_reference(tree, device: str | torch.device = "cuda"
                         ) -> DeviceTree:
-    """A reference ``DeviceTree`` → the port's, on ``device``."""
+    """A reference ``DeviceTree`` → the port's, on ``device``, with the
+    walk pack built from its levels (the reference has none)."""
     dev = resolve_device(device)
     parents = [np.asarray(lv.parent, np.int32) for lv in tree.levels]
+    levels = tuple(Level(mbrs=_t(lv.mbrs, dev, np.float32),
+                         parent=_t(lv.parent, dev, np.int32))
+                   for lv in tree.levels)
     return DeviceTree(
-        levels=tuple(Level(mbrs=_t(lv.mbrs, dev, np.float32),
-                           parent=_t(lv.parent, dev, np.int32))
-                     for lv in tree.levels),
+        levels=levels,
         leaf_entries=_t(tree.leaf_entries, dev, np.float32),
         leaf_entry_ids=_t(tree.leaf_entry_ids, dev, np.int32),
         leaf_counts=_t(tree.leaf_counts, dev, np.int32),
@@ -76,6 +78,8 @@ def tree_from_reference(tree, device: str | torch.device = "cuda"
         max_entries=int(tree.max_entries),
         aslices=_table_from_reference(getattr(tree, "aslices", None),
                                       parents, dev),
+        wpack=build_walk_pack([lv.mbrs for lv in levels],
+                              [lv.parent for lv in levels]),
     )
 
 

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ops as kops, ref as kref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,12 +164,13 @@ def cell_probs_for(forest: Forest, feats: torch.Tensor,
 
     Each (query, slot, tree) reads only the one table row its leaf code
     names (``[B, S, T, Cl]``), never its cell's whole ``[T, 2^D, Cl]``
-    table.
+    table. Feature ids are taken as the reference's gather takes them
+    (``ref.feature_ids``).
     """
     ci = cell_ids.long()
-    fi = forest.feat_idx[ci].long()                     # [B, S, T, D]
-    B, S, T, D = fi.shape
     x = feats.to(torch.float32)
+    fi = kref.feature_ids(forest.feat_idx[ci], x.shape[1])  # [B, S, T, D]
+    B, S, T, D = fi.shape
     sel = torch.gather(x, 1, fi.reshape(B, -1)).reshape(B, S, T, D)
     bits = (sel > forest.thresh[ci]).long()
     powers = 2 ** torch.arange(D - 1, -1, -1, dtype=torch.int64,

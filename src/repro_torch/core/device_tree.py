@@ -13,7 +13,10 @@ suitable for batched traversal on the card:
   point ids ``[L, M_pad]`` (pad = -1);
 * an ``AncestorTable`` of per-(internal level, leaf tile) ancestor windows,
   which the ancestor-sliced walks read so that their shared memory does
-  not grow with the tree.
+  not grow with the tree;
+* a ``WalkPack``: the internal levels packed root first, each internal
+  node's child range in the level below, and the host offsets — what the
+  walk kernels take, built once per tree instead of on every batch.
 
 All device tensors are float32/int32 — the f64 host build is only a builder.
 """
@@ -120,6 +123,68 @@ def build_ancestor_table(level_parents, *, tl: int | None = None,
 
 
 @dataclasses.dataclass(frozen=True)
+class WalkPack:
+    """The walk kernels' per-tree arguments, built once per tree.
+
+    ``flatten`` lays every parent's children out contiguously, in parent
+    order, so each internal node owns the child range ``[first, end)`` of
+    the level below (empty when it has no children). A walk that visits
+    live nodes in increasing id and their children in order meets the
+    visited leaves in id order. Internal level ``l`` lies at
+    ``[offsets[l], offsets[l + 1])`` of the packed arrays.
+    """
+    int_mbrs: torch.Tensor      # [N_int, 4] f32, the internal levels
+    int_parents: torch.Tensor   # [N_int] i32, into the level above
+    child_ranges: torch.Tensor  # [N_int, 2] i32: [first, end) a node
+    offsets: Tuple[int, ...]    # n_int + 1 host offsets into the packs
+    level_sizes: Tuple[int, ...]  # nodes per level, leaves last
+
+
+def child_ranges(parents, n_above: int) -> torch.Tensor:
+    """``[n_above, 2]`` i32: each node's ``[first, end)`` among the nodes
+    whose ``parents`` (an ``[N]`` int tensor into a level of ``n_above``
+    nodes) name it. Raises ``ValueError`` unless the parents are
+    non-decreasing and in ``[0, n_above)``: the children of each parent
+    must be contiguous, in parent order."""
+    p = parents.to(torch.int64)
+    if p.numel() and (bool((p[1:] < p[:-1]).any()) or int(p[0]) < 0
+                      or int(p[-1]) >= n_above):
+        raise ValueError(
+            "the walk needs each level's parents non-decreasing and inside "
+            f"the level above ({n_above} nodes): children contiguous, in "
+            "parent order, as flatten lays them out")
+    nodes = torch.arange(n_above, dtype=torch.int64, device=p.device)
+    return torch.stack([torch.searchsorted(p, nodes),
+                        torch.searchsorted(p, nodes, right=True)],
+                       dim=1).to(torch.int32)
+
+
+def build_walk_pack(level_mbrs, level_parents) -> WalkPack:
+    """The ``WalkPack`` of a level hierarchy (one ``[N_l, 4]`` MBR and one
+    ``[N_l]`` parent tensor per level, root first, leaves last), on the
+    tensors' device. Raises ``ValueError`` where ``child_ranges`` does."""
+    sizes = tuple(int(m.shape[0]) for m in level_mbrs)
+    dev = level_mbrs[0].device
+    n_int = len(sizes) - 1
+    offsets = [0]
+    for n in sizes[:-1]:
+        offsets.append(offsets[-1] + n)
+    ranges = [child_ranges(level_parents[l + 1], sizes[l])
+              for l in range(n_int)]
+    if n_int:
+        mbrs = torch.cat([m.to(torch.float32) for m in level_mbrs[:-1]])
+        pars = torch.cat([p.to(torch.int32) for p in level_parents[:-1]])
+        rng = torch.cat(ranges)
+    else:
+        mbrs = torch.empty((0, 4), dtype=torch.float32, device=dev)
+        pars = torch.empty((0,), dtype=torch.int32, device=dev)
+        rng = torch.empty((0, 2), dtype=torch.int32, device=dev)
+    return WalkPack(int_mbrs=mbrs.contiguous(), int_parents=pars.contiguous(),
+                    child_ranges=rng.contiguous(), offsets=tuple(offsets),
+                    level_sizes=sizes)
+
+
+@dataclasses.dataclass(frozen=True)
 class DeviceTree:
     levels: Tuple[Level, ...]        # levels[0] has exactly 1 node (the root)
     leaf_entries: torch.Tensor       # [L, M_pad, 2] f32, +inf padded
@@ -130,6 +195,9 @@ class DeviceTree:
     # the sliced walks' windows; ``flatten`` always attaches them (None
     # for a single-level tree)
     aslices: AncestorTable | None = None
+    # the walk kernels' packed levels and child ranges; ``flatten``
+    # always attaches them (a tree without one is packed on each walk)
+    wpack: WalkPack | None = None
 
     @property
     def n_leaves(self) -> int:
@@ -163,8 +231,8 @@ def flatten(tree: RTree, pad_to: int | None = None,
 
     ``pad_to`` overrides the per-leaf entry padding (defaults to ``tree.M``,
     rounded up to a multiple of 8). ``slice_tl`` overrides the ancestor
-    table's leaf tile (defaults to ``SLICE_TL``); the table is always
-    attached.
+    table's leaf tile (defaults to ``SLICE_TL``); the table and the
+    ``WalkPack`` are always attached.
     """
     if tree.points is None:
         raise ValueError("flatten() needs a built tree")
@@ -220,4 +288,6 @@ def flatten(tree: RTree, pad_to: int | None = None,
         n_points=int(tree.points.shape[0]),
         max_entries=tree.M,
         aslices=build_ancestor_table(np_parents, tl=slice_tl, device=dev),
+        wpack=build_walk_pack([lv.mbrs for lv in levels],
+                              [lv.parent for lv in levels]),
     )

@@ -34,7 +34,7 @@ def visited_leaf_mask(tree: DeviceTree, queries: torch.Tensor
     """
     return kops.traverse_fused(queries, [lv.mbrs for lv in tree.levels],
                                [lv.parent for lv in tree.levels],
-                               slices=tree.aslices)
+                               slices=tree.aslices, pack=tree.wpack)
 
 
 def visited_leaf_mask_per_level(tree: DeviceTree, queries: torch.Tensor
@@ -106,7 +106,8 @@ def visited_leaves_compact(tree: DeviceTree, queries: torch.Tensor, k: int
     per row (``kernels.ops.traverse_compact``)."""
     idx, valid, count = kops.traverse_compact(
         queries, [lv.mbrs for lv in tree.levels],
-        [lv.parent for lv in tree.levels], k, slices=tree.aslices)
+        [lv.parent for lv in tree.levels], k, slices=tree.aslices,
+        pack=tree.wpack)
     return CompactVisit(leaf_idx=idx, valid=valid, n_visited=count,
                         overflow=count > k)
 

@@ -17,13 +17,7 @@
 // written; for the sizes served (tens of thousands of columns) the block
 // scan's two barriers dominate, not bandwidth.
 //
-// block_compact_bitmap compacts one whole row. block_compact_bitmap_at
-// compacts one tile of a row whose tiles arrive in column order (the TPU
-// kernels' revisited output block): it ranks from the count the earlier
-// tiles reached and returns the tile's own count, and the caller zero-fills
-// the slots and writes the count once the row is done.
-//
-// Shared by mlp_predict_compact.cu, traverse_compact.cu and delta_probe.cu.
+// Shared by mlp_predict_compact.cu and delta_probe.cu.
 #pragma once
 
 #include <cstdint>
@@ -91,34 +85,6 @@ __device__ void block_compact_bitmap(const uint32_t* bits, int n_words,
   for (int s = n + static_cast<int>(threadIdx.x); s < k; s += BLOCK)
     idx_row[s] = 0;
   if (threadIdx.x == 0) *cnt_out = n;
-}
-
-// One tile of a row: the set bits of `bits[0 .. n_words)` are columns
-// col0 + c; they take ranks base, base + 1, ... and those below k are
-// written to idx_row. Returns the tile's set count (the same in every
-// thread). Writes no zeros and no count. All threads of the block must
-// call it; bits must be visible (barrier before the call).
-template <int BLOCK>
-__device__ int block_compact_bitmap_at(const uint32_t* bits, int n_words,
-                                       int k, int col0, int base,
-                                       int* idx_row) {
-  __shared__ int warp_buf[32];
-  __shared__ int total;
-  const int per = (n_words + BLOCK - 1) / BLOCK;
-  const int w0 = min(static_cast<int>(threadIdx.x) * per, n_words);
-  const int w1 = min(w0 + per, n_words);
-  int mine = 0;
-  for (int w = w0; w < w1; ++w) mine += __popc(bits[w]);
-  int rank = base + block_exclusive_scan<BLOCK>(mine, warp_buf, &total);
-  for (int w = w0; w < w1 && rank < k; ++w) {
-    uint32_t m = bits[w];
-    while (m != 0u && rank < k) {
-      int b = __ffs(m) - 1;
-      idx_row[rank++] = col0 + (w << 5) + b;
-      m &= m - 1u;
-    }
-  }
-  return total;
 }
 
 }  // namespace repro_torch

@@ -10,9 +10,10 @@
 // it into the table on the MXU, accumulating trees over its grid. Here one
 // CTA owns kQT queries, so a 512-query batch spreads over 64 SMs. It
 // gathers its own features: the tile's feature rows, thresh and feat_idx
-// (clamped into [0, F), as a gather does) are staged in shared memory, and
-// so are the tables when they are small (kTableSmem; the router's are 4
-// KB), else they are read from global memory in the same kernel. One
+// (a negative id wrapped once, then clamped into [0, F), as the
+// reference's gather does) are staged in shared memory, and so are the
+// tables when they are small (kTableSmem; the router's are 4 KB), else
+// they are read from global memory in the same kernel. One
 // thread per (query, tree) builds the leaf code with the strict > and the
 // most-significant-first order (code = (code << 1) | bit, exact for
 // D <= 24, which the launcher enforces) and writes that tree's C votes to
@@ -52,8 +53,9 @@ forest_infer_kernel(const float* __restrict__ features, int B, int F,
   const int nq = B - b0 < kQT ? static_cast<int>(B - b0) : kQT;
 
   for (int i = threadIdx.x; i < TD; i += kBlock) {
-    const int f = feat_idx[i];
-    s_fi[i] = f < 0 ? 0 : (f >= F ? F - 1 : f);
+    int f = feat_idx[i];
+    f = f < 0 ? f + F : f;                   // wrap once, then clamp,
+    s_fi[i] = f < 0 ? 0 : (f >= F ? F - 1 : f);   // as the gather does
     s_th[i] = thresh[i];
   }
   for (int i = threadIdx.x; i < nq * F; i += kBlock)

@@ -58,7 +58,8 @@ forest_infer_cells_kernel(const float* __restrict__ features, int B, int F,
     int code = 0;
     for (int d = 0; d < D; ++d) {
       int f = feat_idx[r * D + d];
-      f = f < 0 ? 0 : (f >= F ? F - 1 : f);      // clamp, as a gather does
+      f = f < 0 ? f + F : f;                     // wrap once, then clamp,
+      f = f < 0 ? 0 : (f >= F ? F - 1 : f);      // as the gather does
       code = (code << 1) | (x[f] > thresh[r * D + d] ? 1 : 0);
     }
     codes[q * T + t] = code;

@@ -54,8 +54,8 @@
 // folded into per-lane counts by warp reductions before a byte can wrap.
 // The write pass ballots each round's visits into a bitmap of kRound / 32
 // words a row and, for the rows with a visit in the round, ranks a row
-// per warp with shuffles (block_compact_bitmap_at of compact.cuh would
-// take two barriers a row).
+// per warp with shuffles (compact.cuh's block scan would take two
+// barriers a row).
 //
 // Where the time goes on the 40M-point index's kNN batches (PERF.md): the
 // dense clusters, where a leaf is live for most of a group's rows. Their

@@ -136,7 +136,7 @@ def build_all(kernels: Sequence[Kernel] | None = None) -> dict:
 KERNELS = {
     "traverse_fused": Kernel(
         "traverse_fused", "traverse_fused_launch",
-        [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, _P, _I, _I, _P, _P],
+        [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, _P, _I, _P, _P],
         "src/repro/kernels/traverse_fused.py:495"),
     "leaf_refine": Kernel(
         "leaf_refine", "leaf_refine_launch",
@@ -156,7 +156,7 @@ KERNELS = {
         "src/repro/kernels/spatial_key.py:93"),
     "traverse_compact": Kernel(
         "traverse_compact", "traverse_compact_launch",
-        [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, _P, _I, _I, _P, _P, _P],
+        [_P, _I, _P, _P, ctypes.POINTER(_I), _I, _P, _I, _I, _P, _P, _P],
         "src/repro/kernels/traverse_fused.py:554"),
     "knn_browse": Kernel(
         "knn_browse", "knn_browse_launch",

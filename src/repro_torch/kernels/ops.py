@@ -19,9 +19,12 @@ benchmark times.
 The two walks (``traverse_fused``, ``traverse_compact``) climb the
 reference's ladder (``src/repro/kernels/ops.py:244-360``), chosen by
 ``walk_route`` from the shapes alone: a single-level tree is one
-``mbr_intersect``; a tree whose full walk fits one CTA's shared memory
-takes the full-walk kernel; past that, the ancestor-sliced kernel over the
-tree's ``AncestorTable`` (built from the parents when the caller has
+``mbr_intersect``; a tree within the full rung's reach
+(``full_rung_bytes``) whose full walk fits one CTA's shared memory takes
+the full-walk kernel, over the tree's ``WalkPack`` (packed from the
+levels when the caller has none; parents that are not non-decreasing
+then raise ``ValueError``); past that, the ancestor-sliced kernel over
+the tree's ``AncestorTable`` (built from the parents when the caller has
 none); and when even the sliced walk does not fit, the per-level loop of
 ``mbr_intersect`` launches. CPU tensors take none of these rungs: they
 run the one plain walk (``ref.traverse_fused`` / ``ref.traverse_compact``),
@@ -34,16 +37,28 @@ from typing import Callable, Sequence
 
 import torch
 
-from repro_torch.core.device_tree import build_ancestor_table
+from repro_torch.core.device_tree import (
+    WalkPack, build_ancestor_table, build_walk_pack)
 from repro_torch.kernels import ref
 from repro_torch.kernels import cuda as _cuda
 
-# Leaves per CTA along the leaf axis of the traversal kernel's grid, and
-# queries per CTA (kQT in csrc/traverse_fused.cu and in
-# csrc/traverse_compact.cu).
-TRAVERSE_LEAF_CHUNK = 2048
-TRAVERSE_QUERY_TILE = 8
-COMPACT_QUERY_TILE = 4
+# The dense walk's queries per CTA (kQT in csrc/traverse_fused.cu) and
+# its leaf chunk as a tile row of 32-bit words (kRowWords: kChunk / 4 and
+# four words of padding); the compact walk's most warps (queries) a CTA
+# (kWarps in csrc/traverse_compact.cu), each with two lists of int2
+# child ranges as long as the widest internal level.
+TRAVERSE_QUERY_TILE = 16
+TRAVERSE_ROW_WORDS = 1024 // 4 + 4
+COMPACT_WARPS = 4
+# The full rung's reach: the shared memory the full walks asked for before
+# their redesign (the dense walk: a byte a (query, node) of the widest
+# internal level for 8 queries, twice; the compact walk: also an L-bit
+# bitmap a query, for 4). The redesigned kernels' need no longer grows
+# with L, so measured by it alone the 40M-point index's compact walk and
+# the 1.5M-leaf routing tree would leave the sliced rung for the full one
+# unmeasured. A tree takes the full rung only within this reach too, so
+# every tree keeps the rung it had (ROADMAP: open question).
+FULL_RUNG_ROWS = {"fused": 8, "compact": 4}
 SLICED_QUERY_TILE = 8           # kQT in csrc/traverse_fused_sliced.cu
 COMPACT_SLICED_QUERY_TILE = 8   # kQT in csrc/traverse_compact_sliced.cu
 COMPACT_SLICED_ROUND_WORDS = 16  # kRound / 32 there: bitmap words a row
@@ -118,9 +133,11 @@ def walk_smem(kind: str, route: str, level_sizes: Sequence[int],
     if route == "full":
         width = max(level_sizes[:-1], default=1)
         if kind == "fused":
-            return 2 * TRAVERSE_QUERY_TILE * width
-        n_words = (level_sizes[-1] + 31) // 32
-        return COMPACT_QUERY_TILE * (n_words * 4 + 2 * width)
+            # the mask tile, kQT rows of a leaf chunk; and a kQT-bit row
+            # mask a node of the widest internal level, twice
+            return TRAVERSE_QUERY_TILE * TRAVERSE_ROW_WORDS * 4 + \
+                2 * width * (TRAVERSE_QUERY_TILE // 8)
+        return compact_warps(width) * 2 * width * 8
     if route == "sliced":
         if kind == "fused":
             return 2 * SLICED_QUERY_TILE * max(widths)
@@ -133,20 +150,41 @@ def walk_smem(kind: str, route: str, level_sizes: Sequence[int],
     raise ValueError(f"no shared-memory walk on route {route!r}")
 
 
+def compact_warps(width: int) -> int:
+    """Warps (queries) a CTA of the full compact walk: ``COMPACT_WARPS``,
+    fewer when their lists (2 × ``width`` int2 a warp) would outgrow
+    ``MAX_DYNAMIC_SMEM``, at least one (the launch in
+    csrc/traverse_compact.cu picks the same)."""
+    return max(1, min(COMPACT_WARPS, MAX_DYNAMIC_SMEM // (16 * width)))
+
+
+def full_rung_bytes(kind: str, level_sizes: Sequence[int]) -> int:
+    """The full rung's reach for walk ``kind`` on a tree of
+    ``level_sizes``: the shared memory its kernel asked for before the
+    redesign (``FULL_RUNG_ROWS``), which must fit ``MAX_DYNAMIC_SMEM``."""
+    width = max(level_sizes[:-1], default=1)
+    rows = FULL_RUNG_ROWS[kind]
+    if kind == "fused":
+        return 2 * rows * width
+    return rows * ((level_sizes[-1] + 31) // 32 * 4 + 2 * width)
+
+
 def walk_route(kind: str, level_sizes: Sequence[int],
                widths: Sequence[int] | None = None,
                tl: int | None = None) -> str:
     """The rung walk ``kind`` (``"fused"``: dense mask; ``"compact"``:
     slot table) takes for a tree of ``level_sizes`` nodes per level, root
-    first: ``"mbr_intersect"`` for a single level, ``"full"`` when the full
-    walk's shared memory fits ``MAX_DYNAMIC_SMEM``, else ``"sliced"`` when
+    first: ``"mbr_intersect"`` for a single level, ``"full"`` when both
+    the full rung's reach (``full_rung_bytes``) and the full walk's shared
+    memory fit ``MAX_DYNAMIC_SMEM``, else ``"sliced"`` when
     an ancestor table of window ``widths`` and leaf tile ``tl`` is given
     and its walk fits, else ``"per_level"``."""
     if kind not in ("fused", "compact"):
         raise ValueError(f"walk kind must be fused or compact, got {kind!r}")
     if len(level_sizes) == 1:
         return "mbr_intersect"
-    if walk_smem(kind, "full", level_sizes) <= MAX_DYNAMIC_SMEM:
+    if max(full_rung_bytes(kind, level_sizes),
+           walk_smem(kind, "full", level_sizes)) <= MAX_DYNAMIC_SMEM:
         return "full"
     if widths is not None and \
             walk_smem(kind, "sliced", level_sizes, widths, tl) <= \
@@ -200,11 +238,30 @@ def _plan(kind: str, queries, level_mbrs, level_parents, slices):
 # preparation of each CUDA launch
 # ---------------------------------------------------------------------------
 
+def _pack_usable(pack, sizes, device: torch.device) -> bool:
+    """Does this ``WalkPack`` match the tree being walked (its level
+    sizes, the walk's device)? A pack of another tree is rejected."""
+    return (pack is not None and pack.level_sizes == tuple(sizes)
+            and pack.int_mbrs.device == device)
+
+
+def walk_pack(level_mbrs, level_parents, pack: WalkPack | None = None
+              ) -> WalkPack:
+    """``pack`` when it matches the tree, else the tree packed now
+    (``build_walk_pack``: a ``ValueError`` when a level's parents are not
+    non-decreasing, and then no walk kernel runs)."""
+    sizes = [int(m.shape[0]) for m in level_mbrs]
+    if _pack_usable(pack, sizes, level_mbrs[0].device):
+        return pack
+    return build_walk_pack(level_mbrs, level_parents)
+
+
 def _walk_args(name, kind, route, queries, level_mbrs, level_parents,
-               sl=None):
+               sl=None, pack=None):
     """The walk kernels' shared arguments: queries, the internal levels
-    packed root first with their host offsets, and the leaf level. A
-    walk whose shared memory outgrows one CTA raises."""
+    packed root first (the tree's ``WalkPack``) with their host offsets,
+    and the leaf level; and the pack. A walk whose shared memory
+    outgrows one CTA raises."""
     sizes = [int(m.shape[0]) for m in level_mbrs]
     table = () if sl is None else (sl.widths, sl.tl)
     smem = walk_smem(kind, route, sizes, *table)
@@ -214,20 +271,15 @@ def _walk_args(name, kind, route, queries, level_mbrs, level_parents,
             + (f" (windows {list(sl.widths)})" if sl is not None else "")
             + f" needs {smem} bytes of shared memory (> {MAX_DYNAMIC_SMEM}); "
             "walk_route sends it to another rung")
+    pk = walk_pack(level_mbrs, level_parents, pack)
     q = _c(queries, torch.float32)
     n_int = len(level_mbrs) - 1
-    if n_int:
-        int_mbrs = _c(torch.cat(list(level_mbrs[:-1])), torch.float32)
-        int_par = _c(torch.cat(list(level_parents[:-1])), torch.int32)
-    else:   # never read: the kernel walks zero internal levels
-        int_mbrs, int_par = q, q
-    offs = [0]
-    for n in sizes[:-1]:
-        offs.append(offs[-1] + n)
-    h_offs = (ctypes.c_int * len(offs))(*offs)
+    # a single-level tree's empty packs are never read: pass the queries
+    int_mbrs, int_par = (pk.int_mbrs, pk.int_parents) if n_int else (q, q)
+    h_offs = (ctypes.c_int * len(pk.offsets))(*pk.offsets)
     return (q, q.shape[0], int_mbrs, int_par, h_offs, n_int,
-            _c(level_mbrs[-1], torch.float32),
-            _c(level_parents[-1], torch.int32), level_mbrs[-1].shape[0])
+            _c16(level_mbrs[-1], torch.float32),
+            _c16(level_parents[-1], torch.int32), sizes[-1]), pk
 
 
 def _table_args(sl, level_mbrs, device):
@@ -241,33 +293,37 @@ def _table_args(sl, level_mbrs, device):
     return _c(sl.starts, torch.int32), h_w, sl.n_tiles, sl.tl
 
 
-def _prep_traverse_fused(queries, level_mbrs, level_parents):
+def _prep_traverse_fused(queries, level_mbrs, level_parents, pack=None):
     B, L = queries.shape[0], level_mbrs[-1].shape[0]
-    args = _walk_args("traverse_fused", "fused", "full", queries, level_mbrs,
-                      level_parents)
+    args, _ = _walk_args("traverse_fused", "fused", "full", queries,
+                         level_mbrs, level_parents, pack=pack)
     out = torch.empty((B, L), dtype=torch.bool, device=queries.device)
-    launch = _launcher("traverse_fused", queries.device, *args,
-                       TRAVERSE_LEAF_CHUNK, out)
+    launch = _launcher("traverse_fused", queries.device, *args, out)
     return launch, out
 
 
-def _prep_traverse_compact(queries, level_mbrs, level_parents, k):
-    B, L = queries.shape[0], level_mbrs[-1].shape[0]
+def _prep_traverse_compact(queries, level_mbrs, level_parents, k,
+                           pack=None):
+    B = queries.shape[0]
     if k <= 0:
         raise ValueError(f"traverse_compact needs k > 0, got {k}")
-    args = _walk_args("traverse_compact", "compact", "full", queries,
-                      level_mbrs, level_parents)
+    args, pk = _walk_args("traverse_compact", "compact", "full", queries,
+                          level_mbrs, level_parents, pack=pack)
+    q, _, int_mbrs, _, h_offs, n_int, leaf_mbrs, _, L = args
+    # the walk reads each internal node's child range, not its parent
+    ranges = pk.child_ranges if n_int else q
     idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)
     cnt = torch.empty((B,), dtype=torch.int32, device=queries.device)
-    launch = _launcher("traverse_compact", queries.device, *args, k, idx,
-                       cnt)
+    launch = _launcher("traverse_compact", queries.device, q, B, int_mbrs,
+                       ranges, h_offs, n_int, leaf_mbrs, L, k, idx, cnt)
     return launch, (idx, cnt)
 
 
-def _prep_traverse_fused_sliced(queries, level_mbrs, level_parents, sl):
+def _prep_traverse_fused_sliced(queries, level_mbrs, level_parents, sl,
+                                pack=None):
     B, L = queries.shape[0], level_mbrs[-1].shape[0]
-    args = _walk_args("traverse_fused_sliced", "fused", "sliced", queries,
-                      level_mbrs, level_parents, sl)
+    args, _ = _walk_args("traverse_fused_sliced", "fused", "sliced",
+                         queries, level_mbrs, level_parents, sl, pack)
     out = torch.empty((B, L), dtype=torch.bool, device=queries.device)
     launch = _launcher("traverse_fused_sliced", queries.device, *args[:6],
                        *_table_args(sl, level_mbrs, queries.device),
@@ -275,12 +331,13 @@ def _prep_traverse_fused_sliced(queries, level_mbrs, level_parents, sl):
     return launch, out
 
 
-def _prep_traverse_compact_sliced(queries, level_mbrs, level_parents, sl, k):
+def _prep_traverse_compact_sliced(queries, level_mbrs, level_parents, sl, k,
+                                  pack=None):
     B = queries.shape[0]
     if k <= 0:
         raise ValueError(f"traverse_compact_sliced needs k > 0, got {k}")
-    args = _walk_args("traverse_compact_sliced", "compact", "sliced",
-                      queries, level_mbrs, level_parents, sl)
+    args, _ = _walk_args("traverse_compact_sliced", "compact", "sliced",
+                         queries, level_mbrs, level_parents, sl, pack)
     S = compact_sliced_segments(B, sl.n_tiles)
     idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)
     cnt = torch.empty((B,), dtype=torch.int32, device=queries.device)
@@ -512,15 +569,18 @@ def _per_level_walk(queries, level_mbrs, level_parents) -> torch.Tensor:
 def traverse_fused(queries: torch.Tensor,
                    level_mbrs: Sequence[torch.Tensor],
                    level_parents: Sequence[torch.Tensor],
-                   slices=None) -> torch.Tensor:
+                   slices=None, pack: WalkPack | None = None
+                   ) -> torch.Tensor:
     """Root→leaf traversal: [B, 4] → visited-leaf mask [B, L] bool.
 
     ``level_mbrs``: one [N_l, 4] tensor per level, root first, leaf level
     last; ``level_parents``: matching [N_l] i32 index into the level above
     (entry 0 unused). ``slices`` is the tree's ``AncestorTable``
-    (``DeviceTree.aslices``), if the caller has one. On CUDA tensors the
+    (``DeviceTree.aslices``) and ``pack`` its ``WalkPack``
+    (``DeviceTree.wpack``), if the caller has them. On CUDA tensors the
     rung is ``walk_route("fused", ...)``'s; every rung gives the same mask,
-    and CPU tensors run the plain walk.
+    and CPU tensors run the plain walk. The kernel rungs need each
+    level's parents non-decreasing (``ValueError`` otherwise).
     """
     if not _on_cuda(queries, *level_mbrs, *level_parents):
         return ref.traverse_fused(queries, level_mbrs, level_parents)
@@ -531,10 +591,10 @@ def traverse_fused(queries: torch.Tensor,
         return _per_level_walk(queries, level_mbrs, level_parents)
     if route == "full":
         launch, out = _prep_traverse_fused(queries, level_mbrs,
-                                           level_parents)
+                                           level_parents, pack)
     else:
         launch, out = _prep_traverse_fused_sliced(queries, level_mbrs,
-                                                  level_parents, sl)
+                                                  level_parents, sl, pack)
     if out.numel():
         launch()
     return out
@@ -543,7 +603,7 @@ def traverse_fused(queries: torch.Tensor,
 def traverse_compact(queries: torch.Tensor,
                      level_mbrs: Sequence[torch.Tensor],
                      level_parents: Sequence[torch.Tensor], k: int,
-                     slices=None
+                     slices=None, pack: WalkPack | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Traversal + compaction: [B, 4] → ``(leaf_idx [B, k] i32, valid
     [B, k] bool, count [B] i32)`` — the first ``k`` visited leaves in id
@@ -551,8 +611,9 @@ def traverse_compact(queries: torch.Tensor,
 
     Semantically ``compact_mask_counted(traverse_fused(...), k)``; on the
     full and sliced rungs on the card the ``[B, L]`` visited mask never
-    exists. ``slices`` and the rungs as in ``traverse_fused``
-    (``walk_route("compact", ...)``).
+    exists. ``slices``, ``pack`` and the rungs as in ``traverse_fused``
+    (``walk_route("compact", ...)``); the full rung walks the pack's child
+    ranges.
     """
     from repro_torch.core.traversal import compact_mask_counted
     if not _on_cuda(queries, *level_mbrs, *level_parents):
@@ -565,10 +626,10 @@ def traverse_compact(queries: torch.Tensor,
             _per_level_walk(queries, level_mbrs, level_parents), k)
     if route == "full":
         launch, (idx, cnt) = _prep_traverse_compact(queries, level_mbrs,
-                                                    level_parents, k)
+                                                    level_parents, k, pack)
     else:
         launch, (idx, cnt) = _prep_traverse_compact_sliced(
-            queries, level_mbrs, level_parents, sl, k)
+            queries, level_mbrs, level_parents, sl, k, pack)
     if cnt.numel():
         launch()
     valid = torch.arange(k, dtype=torch.int32, device=cnt.device)[None, :] \
@@ -710,8 +771,9 @@ def mlp_predict_compact(queries: torch.Tensor, bank, cell_ids: torch.Tensor,
 
 def forest_infer(features: torch.Tensor, feat_idx: torch.Tensor,
                  thresh: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """features [B,F], feat_idx [T,D] i32 (clamped into [0, F), as a
-    gather does), thresh [T,D], tables [T,2^D,C] → scores [B,C] (votes
+    """features [B,F], feat_idx [T,D] i32 (a negative id wrapped once,
+    then clamped into [0, F), as the reference's gather does), thresh
+    [T,D], tables [T,2^D,C] → scores [B,C] (votes
     summed over trees in ascending order). On the card the kernel gathers
     the features itself: one launch, and the [B, T, D] gather never
     exists."""

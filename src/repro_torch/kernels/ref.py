@@ -259,12 +259,20 @@ def forest_infer(sel: torch.Tensor, thresh: torch.Tensor,
 
 
 
+def feature_ids(feat_idx: torch.Tensor, F: int) -> torch.Tensor:
+    """Feature ids as the reference's gather (``jnp`` indexing) takes
+    them, int64: a negative id wraps once (f + F), then every id is
+    clamped into [0, F)."""
+    fi = feat_idx.long()
+    return torch.clamp(torch.where(fi < 0, fi + F, fi), 0, F - 1)
+
+
 def forest_select(features: torch.Tensor, feat_idx: torch.Tensor
                   ) -> torch.Tensor:
     """features [B,F], feat_idx [T,D] → the trees' features [B,T,D] f32,
-    indices clamped into [0, F) as a gather does."""
-    fi = torch.clamp(feat_idx.long(), 0, features.shape[1] - 1)
-    return features.to(torch.float32)[:, fi]
+    the ids taken as ``feature_ids`` takes them."""
+    return features.to(torch.float32)[:, feature_ids(feat_idx,
+                                                     features.shape[1])]
 
 
 def forest_infer_percell(sel: torch.Tensor, thresh: torch.Tensor,
@@ -286,8 +294,8 @@ def forest_infer_cells(features: torch.Tensor, feat_idx: torch.Tensor,
     """features [B,F], feat_idx/thresh [C·T,D], tables [C·T,2^D,Cl] →
     votes [B, C, Cl]: each cell's T tree votes summed in tree order, by
     an explicit loop — the order the TPU kernel's grid (T innermost) and
-    the CUDA kernel accumulate in. Feature indices are clamped into
-    [0, F), as a gather does."""
+    the CUDA kernel accumulate in. Feature indices as ``forest_select``
+    takes them (wrapped once, then clamped)."""
     B = features.shape[0]
     T = feat_idx.shape[0] // n_cells
     per = forest_infer_percell(forest_select(features, feat_idx), thresh,

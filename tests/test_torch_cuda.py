@@ -92,11 +92,20 @@ def _launched(name, fn):
     return out
 
 
+def _has_childless(parents):
+    """Does some internal node of the level above the leaves have no
+    children?"""
+    return len(np.unique(parents[-1])) < len(parents[-2])
+
+
+@pytest.mark.parametrize("n1", [90, 2000])
 @pytest.mark.parametrize("n_levels", [3, 1])
-def test_traverse_fused_kernel(cuda, n_levels):
-    """Bit-equal dense walk; a single-level tree is one mbr_intersect."""
+def test_traverse_fused_kernel(cuda, n_levels, n1):
+    """Bit-equal dense walk, with 2,000 internal nodes over 5,000 leaves
+    (many with no children); a single-level tree is one mbr_intersect."""
     rng = np.random.default_rng(0)
-    mbrs, parents = levels(rng, L=5000, n1=90)
+    mbrs, parents = levels(rng, L=5000, n1=n1)
+    assert _has_childless(parents) == (n1 == 2000)
     if n_levels == 1:
         mbrs, parents = mbrs[-1:], [np.zeros(len(mbrs[-1]), np.int32)]
     q = _g(edge_queries(rng, mbrs[-1]), cuda)
@@ -172,16 +181,31 @@ def test_leaf_refine_refuses_m_not_multiple_of_4(cuda):
     assert kcuda.KERNELS["leaf_refine"].launches == before
 
 
+def odd_ids(fi, F):
+    """``fi`` with ids the reference's gather wraps or clamps: -1, -F - 1,
+    F + 1, -F, F and -2 first."""
+    fi = fi.copy()
+    odd = [-1, -F - 1, F + 1, -F, F, -2][:fi.size]
+    fi.flat[:len(odd)] = odd
+    return fi
+
+
+@pytest.mark.parametrize("ids", ["in_range", "odd"])
 @pytest.mark.parametrize("T,D,C", [(16, 6, 1), (16, 6, 37), (4, 5, 3),
                                    (16, 12, 1), (1, 1, 1)])
-def test_forest_infer_gathering_kernel(cuda, T, D, C):
+def test_forest_infer_gathering_kernel(cuda, T, D, C, ids):
     """One launch that gathers its own features, bit-equal to the plain
     gather and vote sum: the router's shape (tables staged in shared
     memory), 37 classes and 16 trees of depth 12 (tables read from
     global memory), 700 queries (not a multiple of the 8-query tile),
-    two on a threshold; an empty batch launches nothing."""
+    two on a threshold, feature ids in range or wrapped and clamped as
+    the reference's gather takes them; an empty batch launches
+    nothing."""
     rng = np.random.default_rng(T + 10 * D + 100 * C)
-    x, fi, th, tb = (_g(a, cuda) for a in router_inputs(rng, 700, T, D, C))
+    x, fi, th, tb = router_inputs(rng, 700, T, D, C)
+    if ids == "odd":
+        fi = odd_ids(fi, x.shape[1])
+    x, fi, th, tb = (_g(a, cuda) for a in (x, fi, th, tb))
     got = _launched("forest_infer", lambda: ops.forest_infer(x, fi, th, tb))
     assert torch.equal(got, ref.forest_infer(ref.forest_select(x, fi), th,
                                              tb))
@@ -191,15 +215,20 @@ def test_forest_infer_gathering_kernel(cuda, T, D, C):
     assert kcuda.KERNELS["forest_infer"].launches == before
 
 
+@pytest.mark.parametrize("ids", ["in_range", "odd"])
 @pytest.mark.parametrize("T", [1, 4])
 @pytest.mark.parametrize("D", [1, 8])
 @pytest.mark.parametrize("Cl", [1, 37])
-def test_forest_infer_cells_kernel(cuda, T, D, Cl):
+def test_forest_infer_cells_kernel(cuda, T, D, Cl, ids):
     """Bit-equal votes (tree order in both) with 77 queries (not a
-    multiple of the 32-query tile), an empty cell and a feature exactly
-    on its threshold; one launch, and none for an empty batch."""
+    multiple of the 32-query tile), an empty cell, a feature exactly on
+    its threshold and, for "odd", feature ids the reference's gather
+    wraps or clamps; one launch, and none for an empty batch."""
     rng = np.random.default_rng(T + 10 * D + 100 * Cl)
-    args = [_g(a, cuda) for a in forest_cells_inputs(rng, 77, 6, T, D, Cl)]
+    inputs = list(forest_cells_inputs(rng, 77, 6, T, D, Cl))
+    if ids == "odd":
+        inputs[1] = odd_ids(inputs[1], inputs[0].shape[1])
+    args = [_g(a, cuda) for a in inputs]
     got = _launched("forest_infer_cells",
                     lambda: ops.forest_infer_cells(*args, n_cells=6))
     assert torch.equal(got, ref.forest_infer_cells(*args, 6))
@@ -275,15 +304,18 @@ def test_mlp_predict_compact_kernel(cuda):
     assert cnt[:3].tolist() == [0, k, k + 1]
 
 
+@pytest.mark.parametrize("n1", [90, 2000])
 @pytest.mark.parametrize("n_levels", [3, 1])
 @pytest.mark.parametrize("k", [64, 512])
-def test_traverse_compact_kernel(cuda, n_levels, k):
+def test_traverse_compact_kernel(cuda, n_levels, k, n1):
     """Bit-equal to ``compact_mask_counted`` of the walk, with rows
     visiting 0, exactly k and k + 1 leaves (all L on the single level,
-    which is one mbr_intersect); the kernel itself also walks zero
-    internal levels when launched directly."""
+    which is one mbr_intersect) and, at 2,000 internal nodes, many with
+    no children; the kernel itself also walks zero internal levels when
+    launched directly."""
     rng = np.random.default_rng(4)
-    mbrs, parents = levels(rng, L=5000, n1=90)
+    mbrs, parents = levels(rng, L=5000, n1=n1)
+    assert _has_childless(parents) == (n1 == 2000)
     if n_levels == 1:
         mbrs, parents = mbrs[-1:], [np.zeros(len(mbrs[-1]), np.int32)]
     q = np.concatenate([edge_queries(rng, mbrs[-1]),
@@ -299,6 +331,74 @@ def test_traverse_compact_kernel(cuda, n_levels, k):
     launch, (idx, cnt) = ops.prepare("traverse_compact", q, mb, pa, k)
     _launched("traverse_compact", launch)
     assert torch.equal(idx, want[0]) and torch.equal(cnt, want[2])
+
+
+@pytest.mark.parametrize("k", [64, 512])
+@pytest.mark.parametrize("tree", ["deep", "childless"])
+def test_walk_kernels_edge_rows(cuda, tree, k):
+    """Both full walks, one launch each, bit-equal to their plain
+    versions on a tree of four internal levels (``synth_levels``, fanout
+    8) and on one whose internal nodes are mostly childless, with rows
+    visiting 0, k, k + 1 and all L leaves, a row at x0 > x1 (which meets
+    no leaf), and 45 rows (a multiple of neither CTA's queries); through
+    ``prepare`` too, with the pack built beforehand."""
+    rng = np.random.default_rng(k)
+    if tree == "deep":
+        mbrs, parents = synth_levels(4000, 8, rng)
+        assert [len(p) for p in parents] == [1, 8, 63, 500, 4000]
+    else:
+        mbrs, parents = levels(rng, L=3000, n1=6000)
+        assert _has_childless(parents)
+    L = len(mbrs[-1])
+    q = np.concatenate([edge_queries(rng, mbrs[-1]),
+                        strip_queries(mbrs[-1], [0, k, k + 1, L])])
+    lo, hi = mbrs[-1][:, 0].min(), mbrs[-1][:, 2].max()
+    mid = (lo + hi) / 2
+    inverted = [[mid + 0.25, -9, mid - 0.25, 9]]
+    q = _g(np.concatenate([q, inverted]).astype(np.float32), cuda)
+    assert q.shape[0] == 45
+    mb = [_g(m, cuda) for m in mbrs]
+    pa = [_g(p, cuda) for p in parents]
+    mask = _launched("traverse_fused", lambda: ops.traverse_fused(q, mb, pa))
+    want_mask = ref.traverse_fused(q, mb, pa)
+    assert torch.equal(mask, want_mask)
+    got = _launched("traverse_compact",
+                    lambda: ops.traverse_compact(q, mb, pa, k))
+    want = ref.traverse_compact(q, mb, pa, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2][-5:].tolist() == [0, k, k + 1, L, 0]
+    pack = dt.build_walk_pack(mb, pa)
+    launch, (idx, cnt) = ops.prepare("traverse_compact", q, mb, pa, k, pack)
+    _launched("traverse_compact", launch)
+    assert torch.equal(idx, want[0]) and torch.equal(cnt, want[2])
+    launch, out = ops.prepare("traverse_fused", q, mb, pa, pack)
+    _launched("traverse_fused", launch)
+    assert torch.equal(out, want_mask)
+
+
+@pytest.mark.parametrize("kind", ["fused", "compact"])
+def test_walk_refuses_parents_out_of_order(cuda, kind):
+    """A tree whose leaves' parents are not non-decreasing (children not
+    contiguous) on the full rung: the wrapper raises ``ValueError`` and
+    launches nothing."""
+    rng = np.random.default_rng(12)
+    mbrs, parents = levels(rng, L=500, n1=20)
+    parents[-1] = parents[-1].copy()
+    parents[-1][[3, 400]] = parents[-1][[400, 3]]
+    assert parents[-1][3] != parents[-1][400]
+    q = _g(edge_queries(rng, mbrs[-1]), cuda)
+    mb = [_g(m, cuda) for m in mbrs]
+    pa = [_g(p, cuda) for p in parents]
+    assert ops.walk_route(kind, [len(m) for m in mbrs]) == "full"
+    kcuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="non-decreasing"):
+        if kind == "fused":
+            ops.traverse_fused(q, mb, pa)
+        else:
+            ops.traverse_compact(q, mb, pa, 64)
+    torch.cuda.synchronize()
+    assert not any(kcuda.launch_counts().values())
 
 
 def test_mbr_intersect_kernel(cuda):

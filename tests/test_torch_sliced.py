@@ -494,21 +494,22 @@ def test_walk_route_at_the_port_shapes():
     """``walk_route`` at the shapes the port serves: the 872K-point
     deployment (12,730 leaves; its full walks fit for any internal level
     below ~14,000 nodes), 40M STR points (449,439 leaves: the compact
-    walk passes the limit, the dense one fits), the 1.5M-leaf synthetic
-    tree with its own and with a degenerate table, and one level."""
+    walk passes the full rung's reach, the dense one fits), the 1.5M-leaf
+    synthetic tree with its own and with a degenerate table, and one
+    level."""
     r = ops.walk_route
     dep = [1, 3, 190, 12_730]
     assert r("fused", dep) == r("compact", dep) == "full"
     big = [1, 57, 5_050, 449_439]
-    assert ops.walk_smem("compact", "full", big) == 265_120
+    assert ops.full_rung_bytes("compact", big) == 265_120
     assert r("fused", big) == "full"
     assert r("compact", big) == "per_level"            # no table given
     assert r("compact", big, (128, 128, 5_120), 512) == "sliced"
     parents, sl = _synth_1500k()
     sizes = [len(p) for p in parents]
     assert sizes == [1, 3, 190, 16_854, 1_500_000]
-    assert ops.walk_smem("fused", "full", sizes) == 269_664
-    assert ops.walk_smem("compact", "full", sizes) == 884_832
+    assert ops.full_rung_bytes("fused", sizes) == 269_664
+    assert ops.full_rung_bytes("compact", sizes) == 884_832
     for kind in ("fused", "compact"):
         assert r(kind, sizes) == "per_level"
         assert r(kind, sizes, sl.widths, sl.tl) == "sliced"
