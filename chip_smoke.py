@@ -21,7 +21,12 @@ Phases, each failing the run (non-zero exit) on its own error:
    the full-walk kernels; mbr_intersect on every level; leaf_refine's
    mask and slot counts at the narrow K 64 and at the join's wide K 512;
    traverse_compact on the batch at k 64 and at the wide k 512;
-   forest_infer on the router's features, which it gathers itself);
+   forest_infer on the router's features, which it gathers itself;
+   knn_browse in both forms, the [B, K, M] distances and the selecting
+   form ``knn_query`` calls (the k smallest, their ids and the in-radius
+   count), on edge rows, then the selecting form timed on the kNN
+   stream's first narrow and wide batches; delta_probe at every fill of
+   the mixed stream's buffer);
 5. stream the range workload through ``hybrid_query`` in Hilbert order
    (batch 512, narrow ``max_visited`` 64, wide tier x8) with every launch
    count reset just before and read just after; check the ``# oracle``
@@ -31,7 +36,9 @@ Phases, each failing the run (non-zero exit) on its own error:
    device activities a batch);
 6. on the same index, serve a kNN, a spatial-join and a point stream
    (4096 queries each, one timed repetition), each with its launch
-   counts reset and read around it and its oracle at 0 mismatches;
+   counts reset and read around it and its oracle at 0 mismatches; the
+   kNN stream's profile must hold no sort kernel (its device busy time
+   printed beside the one before the selecting form);
 7. serve the mixed read/write stream (``--insert-rate``'s path): the
    range workload in Hilbert order, batch 512, one batch per segment,
    with 8,192 new records of the same synthetic city
@@ -80,7 +87,9 @@ Phases, each failing the run (non-zero exit) on its own error:
    stream's first narrow batch (k 64) and first wide batch (the rows the
    narrow tier flags, at twice the radius, k 512); on the same batches,
    for information, the full compact walk (off this index's rung),
-   bit-equal to it and timed;
+   bit-equal to it and timed; knn_browse's selecting form bit-equal and
+   timed on the same two batches; the kNN stream's profile without a
+   sort;
 12. the rwkv6-3b serving path at the published width (32 layers, d_model
    2560, 40 heads of 64, d_ff 8960, vocab 65536; ``init_params`` in bf16
    from ``torch.Generator`` seed 0, on the card): ``forward`` at [1, 32768]
@@ -126,6 +135,10 @@ TIMING_REPS = 30
 INSERTS = 8192                   # the mixed stream's new records
 LARGE_POINTS = 40_000_000        # the large index: 20x the paper's Tweets
 DELTA_CAP = 8192                 # repro.launch.serve's --delta-cap
+# The kNN streams' device busy ms before knn_browse picked the k smallest
+# on chip (a full stable sort did): PERF.md section 5, NVIDIA H100 80GB
+# HBM3 at 700 W
+KNN_BUSY_BEFORE = {"knn": 14.286, "knn (large index)": 30.283}
 
 
 class SmokeFailure(RuntimeError):
@@ -268,7 +281,7 @@ def json_row(name, ms, plain_ms, b, by, max_abs_err) -> dict:
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
-def kernel_checks(idx, args, dev, inserts) -> list:
+def kernel_checks(idx, args, base_argv, dev, inserts) -> list:
     """Phase 4: each kernel against its plain version at the serving
     path's shapes (one narrow batch), with edge rows; returns the JSON
     rows (launch counts filled in later)."""
@@ -403,7 +416,7 @@ def kernel_checks(idx, args, dev, inserts) -> list:
         max_abs_err=float((votes - want_v).abs().max()))
     rows.append(spatial_key_check(idx, dev))
     rows.append(traverse_compact_check(idx, q, dev))
-    rows.append(knn_browse_check(idx, args, dev))
+    rows.append(knn_browse_check(idx, args, base_argv, dev))
     rows.append(delta_probe_check(idx, args, dev, inserts))
     rows += sliced_checks(idx, q, dev)
     return rows
@@ -656,8 +669,10 @@ def large_index(dev, card, points: int):
             check(n_checked >= 200, f"large join: only {n_checked} of 256 "
                   "sampled outer rows not truncated")
         make = serve.knn_stream if qt == "knn" else serve.join_stream
-        profile_stream(f"{qt} (large index)",
-                       make(tree, pts, args)[-1])
+        _, busy, by_name = profile_stream(f"{qt} (large index)",
+                                          make(tree, pts, args)[-1])
+        if qt == "knn":
+            knn_stream_sortless("knn (large index)", busy, by_name)
         rates[qt] = ", ".join(f"{v:.0f} {k}" for k, v in out.items())
         print(f"# large {qt} on {card}: {rates[qt]}")
 
@@ -668,8 +683,9 @@ def large_index(dev, card, points: int):
     mb = [lv.mbrs for lv in tree.levels]
     pa = [lv.parent for lv in tree.levels]
     rows = []
-    for tier, qb, k in zip(("kNN batch", "kNN wide batch"),
-                           knn_batches(tree, pts, kargs, dev), (64, 512)):
+    batches = knn_batches(tree, pts, kargs, dev)
+    for tier, (qb, _), k in zip(("kNN batch", "kNN wide batch"), batches,
+                                (64, 512)):
         launch, (kidx, kcnt) = ops.prepare("traverse_compact_sliced", qb, mb,
                                            pa, sl, k)
         launch()
@@ -708,15 +724,21 @@ def large_index(dev, card, points: int):
     row["wide"] = {key: wide[key] for key in
                    ("ms", "plain_ms", "bound_ms", "bound_by", "pass_ms")
                    if key in wide}
+    # knn_browse's selecting form on the same two batches
+    select = {tier: knn_select_case(tree, qb, c3, k, f"large index, {tier}")
+              for tier, (qb, c3), k in zip(("narrow", "wide"), batches,
+                                           (64, 512))}
     print(f"# large-index phase: {time.time()-t_all:.1f}s")
-    return counts, rates, row
+    return counts, rates, row, select
 
 
 def knn_batches(tree, pts, kargs, dev):
     """The kNN stream's first narrow batch of probe boxes (centre ± r, in
     the stream's Hilbert order) and its first wide batch: the rows the
     narrow tier flags, at centre ± 2r, in the wide tier's order (padded
-    to the batch as the scheduler pads it). Both [batch, 4] on ``dev``."""
+    to the batch as the scheduler pads it). Each as ``(boxes [batch, 4],
+    c3 [batch, 3])`` on ``dev``, c3 the centres and r² as ``knn_query``
+    forms them."""
     import numpy as np
     import torch
     from repro_torch.core import knn, schedule
@@ -735,8 +757,11 @@ def knn_batches(tree, pts, kargs, dev):
         sched = schedule.make_schedule(rows, kargs.batch, kargs.sort, bbox,
                                        dev)
         c = next(schedule.iter_batches(rows, sched))[0][:, :2]
-        out.append(torch.from_numpy(np.concatenate(
-            [c - np.float32(radius), c + np.float32(radius)], 1)).to(dev))
+        rt = torch.tensor(radius, dtype=torch.float32, device=dev)
+        ct = torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+        out.append((torch.from_numpy(np.concatenate(
+            [c - np.float32(radius), c + np.float32(radius)], 1)).to(dev),
+            torch.cat([ct, (rt * rt).expand(len(c), 1)], 1)))
     return out
 
 
@@ -863,16 +888,18 @@ def traverse_compact_check(idx, q, dev) -> dict:
     return row
 
 
-def knn_browse_check(idx, args, dev) -> dict:
-    """knn_browse on the kNN stream's first narrow batch (probe boxes at
-    the default radius, k = 8, slots from traverse_compact), with invalid
-    slots, an all-invalid row and an entry exactly at d2 == r2; the
-    deployment's leaves hold fewer than 128 entries (+inf padding).
-    Bit-equal."""
+def knn_browse_check(idx, args, base_argv, dev) -> dict:
+    """knn_browse in both forms on probe boxes at the default radius (k =
+    8, slots from traverse_compact), with invalid slots, an all-invalid
+    row and an entry exactly at d2 == r2; the deployment's leaves hold
+    fewer than 128 entries (+inf padding). Bit-equal. Then the selecting
+    form on the kNN stream's first narrow and wide batches, bit-equal and
+    timed (the row: narrow, ``wide``, and the d2 form's time)."""
     import numpy as np
     import torch
     from repro_torch.core import knn
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
     tree = idx.dtree
     rng = np.random.default_rng(0)
     pts = idx.points
@@ -902,17 +929,81 @@ def knn_browse_check(idx, args, dev) -> dict:
     check(float(d2[1, 0, 0]) == float(c3[1, 2]),
           "knn_browse: the entry at d2 == r2 was dropped")
     check(bool(torch.isinf(d2[4]).all()), "knn_browse: empty row hit")
-    print(f"  knn_browse: bit-equal, the d2 == r2 entry kept, "
-          f"{int(torch.isfinite(d2).sum())} in-radius entries, "
+    # the selecting form on the same edge rows: its n_within is the d2
+    # form's finite count, and row 4 selects nothing
+    _, (d2k, _, nw) = knn_select_case(tree, None, c3, args.max_visited,
+                                      "edge rows", slots=(li, valid))
+    check(torch.equal(nw, torch.isfinite(d2).sum((1, 2)).to(torch.int32)),
+          "knn_browse: the selecting form's counts differ from the d2 "
+          "form's")
+    check(int(nw[4]) == 0 and bool(torch.isinf(d2k[4]).all()),
+          "knn_browse (selecting form): empty row hit")
+    print(f"  knn_browse: bit-equal in both forms, the d2 == r2 entry "
+          f"kept, {int(torch.isfinite(d2).sum())} in-radius entries, "
           f"{n_pad} of {tree.n_leaves} leaves padded")
     B, K = li.shape
     M = tree.leaf_entries.shape[1]
     n_valid = int(valid.sum())
     n_leaves = int(torch.unique(li[valid]).numel())
-    return kernel_row("knn_browse", 0, launch,
-                      lambda: ref.knn_browse(c3, ex, ey, li, valid),
-                      B * 12 + B * K * 5 + n_leaves * M * 8 + B * K * M * 4,
-                      n_valid * M * 6)
+    d2_row = kernel_row("knn_browse", 0, launch,
+                        lambda: ref.knn_browse(c3, ex, ey, li, valid),
+                        B * 12 + B * K * 5 + n_leaves * M * 8
+                        + B * K * M * 4, n_valid * M * 6,
+                        label=" (the d2 form, [B, K, M] out)")
+    # timed: the selecting form on the kNN stream's first narrow and wide
+    # batches (the row), the d2 form beside it
+    kargs = serve.parse_args(base_argv + ["--query-type", "knn"])
+    tiers = [knn_select_case(tree, qb, c3b, k, tier)[0] for tier, (qb, c3b), k
+             in zip(("narrow batch", "wide batch"),
+                    knn_batches(tree, idx.points, kargs, dev),
+                    (args.max_visited, args.max_visited * args.wide_factor))]
+    row, wide = tiers
+    row["wide"] = {key: wide[key] for key in
+                   ("ms", "plain_ms", "bound_ms", "bound_by")}
+    row["d2_form"] = {key: d2_row[key] for key in
+                      ("ms", "plain_ms", "bound_ms", "bound_by")}
+    return row
+
+
+def knn_select_case(tree, qb, c3, K, label, k=8, slots=None):
+    """knn_browse's selecting form (``ops.knn_browse_topk``, k 8) on one
+    batch: the slot table of the probe boxes ``qb`` at K slots (the walk
+    ``knn_query`` runs), or ``slots`` given, against the plain version,
+    bit-equal on distances, ids and counts; then timed. Returns the
+    kernel row and the outputs."""
+    import torch
+    from repro_torch.core import traversal
+    from repro_torch.kernels import ops, ref
+    if slots is None:
+        cv = traversal.visited_leaves_compact(tree, qb, K)
+        slots = (cv.leaf_idx, cv.valid)
+    li, valid = slots
+    ent, eids = tree.leaf_entries, tree.leaf_entry_ids
+    ex, ey = ent[..., 0], ent[..., 1]
+    safe = torch.clamp(li, 0, tree.n_leaves - 1)
+    launch, got = ops.prepare("knn_browse_topk", c3, ent, eids, li, valid, k)
+    launch()
+
+    def plain():
+        return ref.knn_browse_topk(c3, ex, ey, eids, safe, valid, k)
+    want = plain()
+    mism = int((got[0].view(torch.int32) != want[0].view(torch.int32))
+               .sum()) + int((got[1] != want[1]).sum()) \
+        + int((got[2] != want[2]).sum())
+    check(mism == 0, f"knn_browse_topk ({label}): {mism} mismatches "
+          "(bit-exact)")
+    B, Kt = li.shape
+    M = ent.shape[1]
+    n_valid = int(valid.sum())
+    n_leaves = int(torch.unique(safe[valid]).numel())
+    row = kernel_row(
+        "knn_browse", mism, launch, plain,
+        B * 12 + B * Kt * 5 + n_leaves * M * 8 + B * (2 * k + 1) * 4,
+        n_valid * M * 6,
+        label=f" (selecting form, {label}: B {B}, K {Kt}, k {k}, "
+              f"{n_valid / B:.1f} valid slots a row, {n_leaves} leaves, "
+              f"mean {float(got[2].float().mean()):.1f} in radius)")
+    return row, got
 
 
 def make_inserts():
@@ -1136,6 +1227,18 @@ def profile_stream(label: str, run, batches: int | None = None):
     for name, ms in top:
         print(f"    {ms:8.3f} ms  {name[:100]}")
     return out, busy, by_name
+
+
+def knn_stream_sortless(label: str, busy, by_name: dict) -> None:
+    """A kNN stream's profile holds no sort (the k smallest are picked in
+    knn_browse's selecting form); its busy time beside the parent's."""
+    check(busy is not None, f"{label}: the profiler recorded no device "
+          "activity")
+    sorts = [n for n in by_name if "sort" in n.lower()]
+    check(not sorts, f"{label} stream sorted on the card: {sorts[:3]}")
+    print(f"# {label} stream: no sort on the card; device busy {busy:.3f} "
+          f"ms against {KNN_BUSY_BEFORE[label]} ms before the selecting "
+          "form (PERF.md section 5)")
 
 
 def mixed_stream(idx, base_argv, inserts, dev):
@@ -1853,7 +1956,7 @@ def main(argv=None) -> int:
 
     inserts = make_inserts()
     print("# kernels vs plain versions on the card:")
-    rows = kernel_checks(idx, args, dev, inserts)
+    rows = kernel_checks(idx, args, base_argv, dev, inserts)
 
     # -- the range stream in Hilbert order (the reference's default)
     kcuda.reset_launch_counts()
@@ -1911,7 +2014,10 @@ def main(argv=None) -> int:
                                                   qargs)[-1])
         else:
             make = serve.knn_stream if qt == "knn" else serve.join_stream
-            profile_stream(qt, make(idx.dtree, idx.points, qargs)[-1])
+            _, busy, by_name = profile_stream(
+                qt, make(idx.dtree, idx.points, qargs)[-1])
+            if qt == "knn":
+                knn_stream_sortless("knn", busy, by_name)
         check(mism == 0, f"{qt} oracle: {mism} mismatches")
         need = {"knn": ("spatial_key", "traverse_compact", "knn_browse"),
                 "join": ("spatial_key", "traverse_compact", "leaf_refine"),
@@ -1940,10 +2046,15 @@ def main(argv=None) -> int:
     if opts.large_points != LARGE_POINTS:
         print(f"# CUT: the large index holds {opts.large_points} points "
               f"instead of {LARGE_POINTS}")
-    large, large_rates, large_row = large_index(dev, card, opts.large_points)
+    large, large_rates, large_row, large_select = large_index(
+        dev, card, opts.large_points)
     counts["knn (large index)"] = large["knn"]
     counts["join (large index)"] = large["join"]
     rows.append(large_row)
+    knn_row = next(r for r in rows if r["name"] == "knn_browse")
+    knn_row["large"] = {tier: {key: r[key] for key in
+                               ("ms", "plain_ms", "bound_ms", "bound_by")}
+                        for tier, (r, _) in large_select.items()}
 
     # -- the rwkv6-3b serving path: prefill forward (wkv6) and decode
     rcounts, rwkv, wkv6_row = rwkv_phase(dev, card)

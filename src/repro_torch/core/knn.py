@@ -3,9 +3,11 @@
 The kNN path is distance browsing over the range machinery: probe the
 tree with the query's ``centre ± radius`` box through the compacting
 traversal (``visited_leaves_compact``: on the card the ``[B, L]`` visited
-mask never exists), distance-browse exactly the named leaf slots
-(``kernels.ops.knn_browse``), and take the k smallest in-radius distances
-over the flat ``[B, K·M]`` candidate view.
+mask never exists), then distance-browse exactly the named leaf slots
+and keep the k smallest in-radius distances of each row, ties to the
+lower flat position slot·M + m (``kernels.ops.knn_browse_topk``). On the
+card that is one launch that picks the winners on chip: no ``[B, K·M]``
+view of distances or ids exists there, and nothing is sorted.
 
 Exactness: every point within distance ``r`` of the centre lies inside
 the probe box, so it sits in a visited leaf. If the visited set did not
@@ -27,6 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.core.device_tree import DeviceTree
 from repro_torch.core.traversal import visited_leaves_compact
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import smallest_k  # the oracle's selection
 
 # The brute-force oracles hold at most this many (row, point) cells per
 # chunk (a few GB of temporaries on the card), whatever the point count.
@@ -51,14 +54,6 @@ def query_centers(queries: torch.Tensor) -> torch.Tensor:
                         (q[:, 1] + q[:, 3]) * 0.5], dim=1)
 
 
-def smallest_k(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ``k`` smallest values of each row of ``d2`` [B, N] and their
-    positions, ascending, ties to the lower position (``lax.top_k`` of
-    ``-d2``): a stable sort, since ``torch.topk`` orders no ties."""
-    vals, pos = torch.sort(d2, dim=-1, stable=True)
-    return vals[:, :k], pos[:, :k]
-
-
 def knn_query(tree: DeviceTree, queries: torch.Tensor, *, k: int,
               radius: float, max_visited: int = 64) -> KnnResult:
     """Radius-probed exact kNN: queries [B, 4] rects (centres taken) or
@@ -69,23 +64,15 @@ def knn_query(tree: DeviceTree, queries: torch.Tensor, *, k: int,
     box = torch.cat([centers - r, centers + r], dim=1)
     cv = visited_leaves_compact(tree, box, max_visited)
     c3 = torch.cat([centers, (r * r).expand(centers.shape[0], 1)], dim=1)
-    d2 = kops.knn_browse(c3, tree.leaf_entries, cv.leaf_idx, cv.valid)
-    B = centers.shape[0]
-    flat_d2 = d2.reshape(B, -1)                          # [B, K·M]
-    safe_idx = torch.clamp(cv.leaf_idx.long(), 0, tree.n_leaves - 1)
-    flat_ids = tree.leaf_entry_ids[safe_idx].reshape(B, -1)
-    n_within = torch.sum(torch.isfinite(flat_d2).to(torch.int32), dim=-1,
-                         dtype=torch.int32)
-    kk = min(k, flat_d2.shape[-1])
-    d2k, pos = smallest_k(flat_d2, kk)
-    idk = torch.gather(flat_ids, 1, pos)
+    d2k, idk, n_within = kops.knn_browse_topk(
+        c3, tree.leaf_entries, tree.leaf_entry_ids, cv.leaf_idx, cv.valid, k)
+    kk = d2k.shape[1]
     if kk < k:          # degenerate tiny trees: keep the static [B, k]
         d2k = torch.nn.functional.pad(d2k, (0, k - kk), value=torch.inf)
-        idk = torch.nn.functional.pad(idk, (0, k - kk), value=0)
-    hit = torch.isfinite(d2k)
+        idk = torch.nn.functional.pad(idk, (0, k - kk), value=-1)
     return KnnResult(
-        neighbor_ids=torch.where(hit, idk, -1).to(torch.int32),
-        neighbor_d2=torch.where(hit, d2k, torch.inf),
+        neighbor_ids=idk,
+        neighbor_d2=d2k,
         n_within=n_within,
         n_visited=cv.n_visited,
         leaf_accesses=torch.clamp(cv.n_visited, max=max_visited),

@@ -17,7 +17,8 @@
 // written; for the sizes served (tens of thousands of columns) the block
 // scan's two barriers dominate, not bandwidth.
 //
-// Shared by mlp_predict_compact.cu and delta_probe.cu.
+// Used by mlp_predict_compact.cu (delta_probe.cu ranks its own hits since
+// its redesign).
 #pragma once
 
 #include <cstdint>

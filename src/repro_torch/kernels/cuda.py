@@ -10,8 +10,10 @@ one ``nvcc`` per source at once and waits for all of them.
 Launchers take device pointers and PyTorch's current stream as Python ints
 (``ctypes.c_void_p``), launch without synchronising, and return the
 launch's ``cudaError_t``; ``Kernel.__call__`` raises on anything but 0.
-Every launch adds one to ``Kernel.launches`` — the count a run reads to
-show the serving path went through the kernel.
+A source may export more than one launcher (``knn_browse``: the d2 form
+and the selecting form); they share the kernel's name and count. Every
+launch adds one to ``Kernel.launches`` — the count a run reads to show
+the serving path went through the kernel.
 
 Nothing here runs at import: the CPU-only tests import every module and
 never reach ``nvcc``.
@@ -51,10 +53,11 @@ class Kernel:
     """One CUDA source, its shared library, and its launch count."""
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence,
-                 replaces: str):
+                 replaces: str, more: dict | None = None):
         self.name = name
         self.symbol = symbol
-        self.argtypes = list(argtypes)
+        # every launcher the library exports: {symbol: argtypes}
+        self.symbols = {symbol: list(argtypes), **(more or {})}
         self.replaces = replaces
         self.launches = 0
         self._lib = None
@@ -88,14 +91,15 @@ class Kernel:
                 if not path.exists():
                     build_all([self])
                 lib = ctypes.CDLL(str(path))
-                fn = getattr(lib, self.symbol)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
+                for symbol, argtypes in self.symbols.items():
+                    fn = getattr(lib, symbol)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 self._lib = lib
             return self._lib
 
-    def __call__(self, *args) -> None:
-        err = getattr(self.lib(), self.symbol)(*args)
+    def __call__(self, *args, symbol: str | None = None) -> None:
+        err = getattr(self.lib(), symbol or self.symbol)(*args)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError_t {err}")
@@ -161,7 +165,9 @@ KERNELS = {
     "knn_browse": Kernel(
         "knn_browse", "knn_browse_launch",
         [_P, _P, _I, _P, _P, _I, _I, _P, _P],
-        "src/repro/kernels/knn_browse.py:96"),
+        "src/repro/kernels/knn_browse.py:96",
+        {"knn_browse_topk_launch":
+         [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]}),
     "delta_probe": Kernel(
         "delta_probe", "delta_probe_launch",
         [_P, _I, _P, _I, _I, _P, _P, _P],

@@ -62,9 +62,9 @@ FULL_RUNG_ROWS = {"fused": 8, "compact": 4}
 SLICED_QUERY_TILE = 8           # kQT in csrc/traverse_fused_sliced.cu
 COMPACT_SLICED_QUERY_TILE = 8   # kQT in csrc/traverse_compact_sliced.cu
 COMPACT_SLICED_ROUND_WORDS = 16  # kRound / 32 there: bitmap words a row
-DELTA_QUERY_TILE = 4      # kQT in csrc/delta_probe.cu
 FOREST_QUERY_TILE = 32    # kQT in csrc/forest_infer_cells.cu
 ROUTER_QUERY_TILE = 8     # kQT in csrc/forest_infer.cu
+KNN_MAX_K = 64            # kMaxK in csrc/knn_browse.cu: the largest k
 WKV6_CHUNK = 64           # the reference's DEF_CHUNK (kernels/wkv6.py)
 WKV6_HEAD = 64            # kD in csrc/wkv6.cu: its dk = dv (smaller pad)
 CURVES = {"morton": 0, "hilbert": 1}
@@ -104,16 +104,19 @@ def _c16(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launcher(name: str, device: torch.device, *args) -> Callable[[], None]:
-    """A closure that launches kernel ``name`` on ``device``'s current
-    stream. ``args`` mixes tensors (passed as device pointers; the closure
-    keeps them alive) and plain ints/floats/ctypes values."""
+def _launcher(name: str, device: torch.device, *args,
+              symbol: str | None = None) -> Callable[[], None]:
+    """A closure that launches kernel ``name`` (its launcher ``symbol``,
+    else its first) on ``device``'s current stream. ``args`` mixes tensors
+    (passed as device pointers; the closure keeps them alive) and plain
+    ints/floats/ctypes values."""
     kernel = _cuda.KERNELS[name]
     cargs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
 
     def launch() -> None:
         with torch.cuda.device(device):
-            kernel(*cargs, torch.cuda.current_stream(device).cuda_stream)
+            kernel(*cargs, torch.cuda.current_stream(device).cuda_stream,
+                   symbol=symbol)
     launch.tensors = args   # keeps every pointer in cargs alive
     return launch
 
@@ -459,6 +462,36 @@ def _prep_knn_browse(centers, leaf_entries, safe_idx, valid):
     return launch, out
 
 
+def _prep_knn_browse_topk(centers, leaf_entries, entry_ids, leaf_idx, valid,
+                         k):
+    B, K = leaf_idx.shape
+    L, M = leaf_entries.shape[:2]
+    if L <= 0 or M <= 0 or M % 2 or K <= 0 or K * M >= 2 ** 31:
+        raise ValueError(f"knn_browse_topk: the kernel takes leaves of a "
+                         f"positive even number of entries and K·M < 2^31, "
+                         f"got [{L}, {M}] leaves and K {K}")
+    if not 1 <= k <= min(KNN_MAX_K, K * M):
+        raise ValueError(f"knn_browse_topk: k must lie in [1, "
+                         f"{min(KNN_MAX_K, K * M)}] (the kernel keeps at "
+                         f"most {KNN_MAX_K}), got {k}")
+    # the slot table and its valid list beside the warps' lists (4 KB at
+    # k 64)
+    if K * 8 > MAX_DYNAMIC_SMEM - 4096:
+        raise ValueError(f"knn_browse_topk: a slot table of {K} slots "
+                         f"needs {K * 8} bytes of shared memory (> "
+                         f"{MAX_DYNAMIC_SMEM - 4096})")
+    dev = centers.device
+    d2k = torch.empty((B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    n_within = torch.empty((B,), dtype=torch.int32, device=dev)
+    launch = _launcher(
+        "knn_browse", dev, _c(centers, torch.float32),
+        _c16(leaf_entries, torch.float32), L, M, _c(entry_ids, torch.int32),
+        _c(leaf_idx, torch.int32), _c(valid, torch.bool), B, K, k, d2k, ids,
+        n_within, symbol="knn_browse_topk_launch")
+    return launch, (d2k, ids, n_within)
+
+
 def _prep_spatial_key(cxy, curve, order=15):
     if curve not in CURVES:
         raise ValueError(f"curve must be one of {sorted(CURVES)}, got "
@@ -476,16 +509,11 @@ def _prep_delta_probe(queries, pts, k):
     B, cap = queries.shape[0], pts.shape[0]
     if k <= 0:
         raise ValueError(f"delta_probe needs k > 0, got {k}")
-    smem = DELTA_QUERY_TILE * ((cap + 31) // 32) * 4
-    if smem > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"delta_probe: a buffer of {cap} points needs "
-                         f"{smem} bytes of shared memory (> "
-                         f"{MAX_DYNAMIC_SMEM})")
     idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)
     cnt = torch.empty((B,), dtype=torch.int32, device=queries.device)
     launch = _launcher("delta_probe", queries.device,
-                       _c(queries, torch.float32), B, _c(pts, torch.float32),
-                       cap, k, idx, cnt)
+                       _c16(queries, torch.float32), B,
+                       _c16(pts, torch.float32), cap, k, idx, cnt)
     return launch, (idx, cnt)
 
 
@@ -526,6 +554,7 @@ _PREP = {"traverse_fused": _prep_traverse_fused,
          "traverse_compact": _prep_traverse_compact,
          "leaf_refine": _prep_leaf_refine,
          "knn_browse": _prep_knn_browse,
+         "knn_browse_topk": _prep_knn_browse_topk,
          "mlp_predict_compact": _prep_mlp_predict_compact,
          "forest_infer": _prep_forest_infer,
          "forest_infer_cells": _prep_forest_infer_cells,
@@ -673,6 +702,36 @@ def knn_browse(centers: torch.Tensor, leaf_entries: torch.Tensor,
                               leaf_entries[..., 1], safe_idx, valid)
     launch, out = _prep_knn_browse(centers, leaf_entries, safe_idx, valid)
     if out.numel():
+        launch()
+    return out
+
+
+def knn_browse_topk(centers: torch.Tensor, leaf_entries: torch.Tensor,
+                    leaf_entry_ids: torch.Tensor, leaf_idx: torch.Tensor,
+                    valid: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``knn_browse`` and the k smallest of each row in one step:
+    centers [B,3] (cx, cy, r²), leaf_entries [L,M,2], leaf_entry_ids
+    [L,M], leaf_idx/valid [B,K] → ``(d2k [B, kk] f32, ids [B, kk] i32,
+    n_within [B] i32)``, kk = min(k, K·M): the kk smallest in-radius
+    squared distances ascending, ties to the lower flat position
+    slot·M + m (``lax.top_k`` of ``-d2``), the winners' entry ids, +inf
+    and -1 where fewer lie within the radius, and each row's count of
+    in-radius candidates. Slot ids are clamped into [0, L).
+
+    On the card this is one ``knn_browse`` launch that picks the winners
+    on chip: the [B, K, M] distances never exist. It takes k up to
+    ``KNN_MAX_K`` and leaves of an even number of entries, and raises
+    past them."""
+    if not _on_cuda(centers, leaf_entries, leaf_entry_ids, leaf_idx, valid):
+        safe_idx = torch.clamp(leaf_idx, 0, leaf_entries.shape[0] - 1)
+        return ref.knn_browse_topk(centers, leaf_entries[..., 0],
+                                   leaf_entries[..., 1], leaf_entry_ids,
+                                   safe_idx, valid, k)
+    kk = min(k, leaf_idx.shape[1] * leaf_entries.shape[1])
+    launch, out = _prep_knn_browse_topk(centers, leaf_entries,
+                                        leaf_entry_ids, leaf_idx, valid, kk)
+    if leaf_idx.shape[0]:
         launch()
     return out
 

@@ -153,6 +153,36 @@ def knn_browse(centers: torch.Tensor, ex: torch.Tensor, ey: torch.Tensor,
     return torch.where(ok, d2, torch.inf)
 
 
+def smallest_k(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest values of each row of ``d2`` [B, N] and their
+    positions, ascending, ties to the lower position (``lax.top_k`` of
+    ``-d2``): a stable sort, since ``torch.topk`` orders no ties."""
+    vals, pos = torch.sort(d2, dim=-1, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def knn_browse_topk(centers: torch.Tensor, ex: torch.Tensor,
+                    ey: torch.Tensor, entry_ids: torch.Tensor,
+                    leaf_idx: torch.Tensor, valid: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``knn_browse``, then the k smallest of each row's flat [K·M] view:
+    ``(d2k [B, kk] f32, ids [B, kk] i32, n_within [B] i32)`` with kk =
+    min(k, K·M). Ascending, ties to the lower flat position slot·M + m;
+    ``ids`` are the winners' ``entry_ids`` [L, M]; +inf and -1 where
+    fewer than kk lie within the radius; ``n_within`` counts the finite
+    candidates. ``leaf_idx`` must already lie in [0, L)."""
+    d2 = knn_browse(centers, ex, ey, leaf_idx, valid)
+    B = d2.shape[0]
+    flat_d2 = d2.reshape(B, -1)                          # [B, K·M]
+    flat_ids = entry_ids[leaf_idx.long()].reshape(B, -1)
+    n_within = torch.sum(torch.isfinite(flat_d2).to(torch.int32), dim=-1,
+                         dtype=torch.int32)
+    d2k, pos = smallest_k(flat_d2, min(k, flat_d2.shape[-1]))
+    hit = torch.isfinite(d2k)
+    ids = torch.where(hit, torch.gather(flat_ids, 1, pos), -1)
+    return d2k, ids.to(torch.int32), n_within
+
+
 def spatial_key(cxy: torch.Tensor, curve: str = "hilbert",
                 order: int = 15) -> torch.Tensor:
     """Space-filling-curve keys: normalized centres [B, 2] f32 → [B] i32.

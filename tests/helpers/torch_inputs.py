@@ -105,6 +105,48 @@ def knn_inputs(rng, L=50, M=16, B=24, K=8, fill=12):
     return np.concatenate([c, r2], axis=1), ent, idx, valid
 
 
+def knn_tie_inputs(rng, L=40, M=16, B=24, K=8, fill=12, grid=16):
+    """Tie-heavy browse inputs ``(c3 [B, 3], entries [L, M, 2], entry_ids
+    [L, M], leaf_idx [B, K], valid [B, K])`` for the selecting form.
+
+    Entries and centres lie on a ``1/grid`` lattice, so every squared
+    distance is exact (no rounding, hence no FMA contraction either) and
+    equal distances abound; leaf 1 repeats leaf 0, entry 3 of every leaf
+    repeats entry 2, and rows name the same leaf in several slots (row 5
+    names leaves 0 and 1 alternately). Entries past ``fill`` are +inf
+    padding with id -1. Edge rows: 0 has r² < 0 (nothing in radius), 1 an
+    entry exactly at d2 == r², 2 out-of-range ids on invalid slots, 3 all
+    invalid, 4 out-of-range ids on valid slots (clamped into [0, L)), 6 a
+    radius below the lattice step (only coincident points), 7 r² = +inf
+    (every finite entry, never the padding)."""
+    g = np.float32(grid)
+    ent = (rng.integers(0, grid, (L, M, 2)) / g).astype(np.float32)
+    ent[:, 3] = ent[:, 2]
+    ent[1] = ent[0]
+    ent[:, fill:] = np.inf
+    ids = np.arange(L * M, dtype=np.int32).reshape(L, M)
+    ids[:, fill:] = -1
+    c = (rng.integers(0, grid, (B, 2)) / g).astype(np.float32)
+    r2 = rng.choice(np.array([1, 4, 16, 64], np.float32) / g ** 2, (B, 1))
+    idx = rng.integers(0, L, (B, K)).astype(np.int32)
+    idx[:, 1::3] = idx[:, 0:1]
+    valid = rng.uniform(size=(B, K)) < 0.8
+    r2[0, 0] = -1
+    idx[1, 0], valid[1, 0] = 4, True
+    dx, dy = ent[4, 0] - c[1]
+    r2[1, 0] = np.float32(dx * dx) + np.float32(dy * dy)  # d2 == r2
+    idx[2, :3] = [-1, L, L + 7][:K]
+    valid[2, :3] = False
+    valid[3] = False                                     # empty row
+    idx[4, :2] = [-3, L + 2][:K]
+    valid[4, :2] = True
+    idx[5] = np.arange(K) % 2
+    valid[5] = True
+    r2[6, 0] = 0.25 / g ** 2
+    r2[7, 0] = np.inf
+    return np.concatenate([c, r2], axis=1), ent, ids, idx, valid
+
+
 def delta_inputs(rng, B, cap, fill, k):
     """Delta-probe inputs: a [cap, 2] buffer with ``fill`` staged points
     (+inf past them) and [B, 4] query rects with the edge rows.

@@ -28,7 +28,7 @@ from repro_torch.kernels import cuda as kcuda, ops, ref  # noqa: E402
 # environment may carry another top-level ``tests`` package
 from helpers.torch_inputs import (  # noqa: E402
     delta_inputs, edge_bank, edge_queries, forest_cells_inputs, key_centres,
-    knn_inputs, levels, rects)
+    knn_inputs, knn_tie_inputs, levels, rects)
 
 pytestmark = pytest.mark.gpu
 
@@ -558,14 +558,113 @@ def test_knn_browse_kernel(cuda):
     assert torch.isinf(got[3]).all() and torch.isinf(got[..., 100:]).all()
 
 
+def _topk_equal(args, k):
+    got = _launched("knn_browse", lambda: ops.knn_browse_topk(*args, k))
+    safe = torch.clamp(args[3], 0, args[1].shape[0] - 1)
+    want = ref.knn_browse_topk(args[0], args[1][..., 0], args[1][..., 1],
+                               args[2], safe, args[4], k)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    return got
+
+
+def serving_slots(rng, L, M, B, K, frac, fill=100):
+    """Selecting-form inputs at a serving shape: leaves of ``fill``
+    entries (+inf and id -1 past), centres at entries, a radius that takes
+    in tens to thousands of candidates, slot tables whose valid prefix
+    averages ``frac`` of K (1.0: every slot, as on the 40M-point index),
+    and the last 12 rows repeating row B - 13 (the scheduler's padding)."""
+    ent = rng.uniform(0, 1, (L, M, 2)).astype(np.float32)
+    ent[:, fill:] = np.inf
+    ids = rng.permutation(L * M).astype(np.int32).reshape(L, M)
+    ids[:, fill:] = -1
+    c = ent[rng.integers(0, L, B), rng.integers(0, fill, B)]
+    r2 = rng.choice(np.array([1e-4, 1e-3, 1e-2], np.float32), (B, 1))
+    idx = rng.integers(0, L, (B, K)).astype(np.int32)
+    n_vis = np.minimum(K, rng.integers(0, int(2 * frac * K) + 1, B))
+    if frac >= 1:
+        n_vis[:] = K
+    valid = np.arange(K)[None, :] < n_vis[:, None]
+    c3 = np.concatenate([c, r2], 1)
+    for a in (c3, idx, valid):
+        a[-12:] = a[-13]
+    return c3, ent, ids, idx, valid
+
+
+@pytest.mark.parametrize("K,frac", [(64, 0.1), (512, 0.02), (64, 1.0),
+                                    (512, 1.0)])
+def test_knn_browse_topk_kernel(cuda, K, frac):
+    """The selecting form at the serving shapes (B 512, M 128, k 8): the
+    872K deployment's narrow and wide tables (a short valid prefix) and
+    the 40M-point index's (every slot valid); bit-equal on the k
+    distances, ids and counts, one knn_browse launch a call."""
+    rng = np.random.default_rng(K + int(frac * 100))
+    args = [_g(a, cuda) for a in serving_slots(rng, 3000, 128, 512, K,
+                                               frac)]
+    d2k, _, nw = _topk_equal(args, 8)
+    assert int(nw.max()) > 8 and torch.isfinite(d2k).any()
+
+
+@pytest.mark.parametrize("k,M", [(1, 16), (8, 16), (64, 16), (8, 128),
+                                 (64, 128), (5, 66)])
+def test_knn_browse_topk_kernel_ties(cuda, k, M):
+    """Tie-heavy lattice inputs (duplicate points within a leaf and across
+    slots, d2 == r2, r2 < 0 and +inf, an all-invalid row, clamped ids),
+    k 1, 8 and 64, leaves of 16, 128 and 66 entries (a slot's second
+    unit partly idle): bit-equal, one launch."""
+    args = [_g(a, cuda) for a in knn_tie_inputs(
+        np.random.default_rng(k + M), L=40, M=M, B=24, K=8,
+        fill=min(M, 100) - 4)]
+    _topk_equal(args, k)
+
+
+def test_knn_browse_topk_kernel_refuses(cuda):
+    """k past KNN_MAX_K and odd leaves raise before any launch."""
+    args = [_g(a, cuda) for a in knn_tie_inputs(
+        np.random.default_rng(0), L=40, M=16, B=24, K=8)]
+    before = kcuda.KERNELS["knn_browse"].launches
+    with pytest.raises(ValueError, match="knn_browse_topk"):
+        ops.knn_browse_topk(*args, ops.KNN_MAX_K + 1)
+    with pytest.raises(ValueError, match="knn_browse_topk"):
+        ops.knn_browse_topk(args[0], args[1][:, :15].contiguous(),
+                            args[2][:, :15].contiguous(), *args[3:], 8)
+    assert kcuda.KERNELS["knn_browse"].launches == before
+
+
+def test_knn_query_cuda_equals_cpu(cuda):
+    """``knn_query`` on the card: one knn_browse launch and one compact
+    walk a call, nothing else of the port's kernels, and every field
+    equal to the same call on the CPU (plain versions)."""
+    from repro_torch.core import knn
+    from repro_torch.core.rtree import RTree
+    from repro_torch.data import synth
+    pts = synth.tweets_like(20000, seed=0)
+    host = RTree.str_bulk(pts, max_entries=32)
+    q = np.concatenate([pts[:300], pts[:300]], 1).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        tree = dt.flatten(host, device=dev)
+        r = knn.default_radius(tree, 8)
+        kcuda.reset_launch_counts()
+        out[str(dev)] = knn.knn_query(tree, _g(q, dev), k=8, radius=r)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launched = {n: c for n, c in kcuda.launch_counts().items() if c}
+            assert launched == {"knn_browse": 1, "traverse_compact": 1}
+    for g, w in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("B,cap,fill,k", [
     (512, 8192, f, k) for k in (64, 512) for f in (0, 1170, 6144, 8192)
-] + [(37, 777, 600, 8), (5, 1, 1, 4)])
+] + [(37, 777, 600, 8), (5, 1, 1, 4), (64, 40001, 30000, 64)])
 def test_delta_probe_kernel(cuda, B, cap, fill, k):
     """Bit-equal to ``compact_mask_counted`` of the containment mask at
-    the serving shapes (B 512, cap 8192, the narrow and wide k) and at a
-    cap that is not a multiple of the block and a one-point store; rows
-    with exactly k and k + 1 hits and edges through buffer points."""
+    the serving shapes (B 512, cap 8192, the narrow and wide k), at a
+    cap that is not a multiple of the block, on a one-point store and on
+    a buffer too large to stage in shared memory (swept from global
+    memory); rows with exactly k and k + 1 hits and edges through buffer
+    points."""
     q, pts = delta_inputs(np.random.default_rng(fill + k), B, cap, fill, k)
     q, pts = _g(q, cuda), _g(pts, cuda)
     got = _launched("delta_probe", lambda: ops.delta_probe(q, pts, k=k))
