@@ -18,7 +18,8 @@ Phases, each failing the run (non-zero exit) on its own error:
 4. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it plus edge rows, and time both (the
    ancestor-sliced walks with the deployed tree's own table, also against
-   the full-walk kernels; mbr_intersect on every level; leaf_refine's
+   the full-walk kernels; mbr_intersect on every level, plain and folded
+   with the level above's mask, each level timed; leaf_refine's
    mask and slot counts at the narrow K 64 and at the join's wide K 512;
    traverse_compact on the batch at k 64 and at the wide k 512;
    forest_infer on the router's features, which it gathers itself;
@@ -74,8 +75,11 @@ Phases, each failing the run (non-zero exit) on its own error:
    ``ops.traverse_compact``: a synthetic 1.5M-leaf STR hierarchy whose
    full walks pass one CTA's shared memory takes both sliced kernels;
    with a degenerate table the dense walk takes the per-level
-   mbr_intersect loop; a single-level tree is one mbr_intersect; launch
-   counts per step, each result bit-equal to its plain version;
+   mbr_intersect loop (its device activities, CUPTI: one mbr_intersect a
+   level and nothing else; the step timed, and mbr_intersect on the two
+   widest levels, plain and folded); a single-level tree is one
+   mbr_intersect; launch counts per step, each result bit-equal to its
+   plain version;
 11. build the large index (``tweets_like`` 40M points, 20x the paper's
    Tweets set, ``str_bulk`` at capacity 128, flattened onto the card),
    whose compact walk needs the ancestor-sliced kernel, and serve the
@@ -424,9 +428,10 @@ def kernel_checks(idx, args, base_argv, dev, inserts) -> list:
 
 def sliced_checks(idx, q, dev) -> list:
     """mbr_intersect on the batch against every level of the deployed
-    tree; both ancestor-sliced kernels with the tree's own table, bit-equal
-    to their plain versions and to the full-walk kernels (compact at k 64
-    and 512 with strip rows visiting 0, k and k + 1 leaves). Returns the
+    tree, plain and folded, each level timed; both ancestor-sliced
+    kernels with the tree's own table, bit-equal to their plain versions
+    and to the full-walk kernels (compact at k 64 and 512 with strip rows
+    visiting 0, k and k + 1 leaves). Returns the
     mbr_intersect and traverse_fused_sliced rows (the compact one is
     timed on the 40M-point index, where the serving path runs it)."""
     import torch
@@ -440,12 +445,20 @@ def sliced_checks(idx, q, dev) -> list:
     print(f"  ancestor table of the deployed tree: levels "
           f"{[int(m.shape[0]) for m in mb]}, windows {sl.widths}, "
           f"{sl.n_tiles} tiles of {sl.tl} leaves")
-    for m in mb:
-        launch, hit = ops.prepare("mbr_intersect", q, m)
-        launch()
-        mism = int((hit != ref.mbr_intersect(q, m)).sum())
-        check(mism == 0, f"mbr_intersect ({m.shape[0]} MBRs): {mism} "
-              "mismatches")
+    mask = None
+    for m, p in zip(mb, pa):
+        for fold in ((), (mask, p)) if mask is not None else ((),):
+            launch, hit = ops.prepare("mbr_intersect", q, m, *fold)
+            launch()
+            mism = int((hit != ref.mbr_intersect(q, m, *fold)).sum())
+            check(mism == 0, f"mbr_intersect ({m.shape[0]} MBRs"
+                  f"{', folded' if fold else ''}): {mism} mismatches")
+        mask = hit
+    check(torch.equal(mask, ref.traverse_fused(q, mb, pa)),
+          "mbr_intersect folded level by level differs from the walk")
+    print("  mbr_intersect: bit-equal to its plain version at every level "
+          "of the deployed tree, plain and folded (the parent's mask "
+          "through its parents); folded level by level it is the walk")
     launch, vis = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
     launch()
     want = ref.traverse_fused_sliced(q, mb, pa, sl.starts, sl.widths, sl.tl)
@@ -485,10 +498,14 @@ def sliced_checks(idx, q, dev) -> list:
                                                    sl.widths, sl.tl, 64),
                B * 16 + nodes * 20 + sl.starts.numel() * 4 + B * 65 * 4,
                tests * 4, label=" (deployment, k 64)")
-    launch, _ = ops.prepare("mbr_intersect", q, mb[-1])
-    rows = [kernel_row("mbr_intersect", 0, launch,
-                       lambda: ref.mbr_intersect(q, mb[-1]),
-                       (B + L) * 16 + B * L, B * L * 4)]
+    for m in mb:    # every level; the leaf level's row is the JSON row
+        n = int(m.shape[0])
+        launch, _ = ops.prepare("mbr_intersect", q, m)
+        row = kernel_row("mbr_intersect", 0, launch,
+                         lambda m=m: ref.mbr_intersect(q, m),
+                         (B + n) * 16 + B * n, B * n * 4,
+                         label=f" ({B} x {n})")
+    rows = [row]
     launch, _ = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
     rows.append(kernel_row(
         "traverse_fused_sliced", 0, launch,
@@ -506,7 +523,8 @@ def routing_phase(idx, dev) -> dict:
     table (every window the whole lane-padded level) the dense walk takes
     the per-level mbr_intersect loop and the compact walk stays sliced;
     a single-level tree is one mbr_intersect. Each result is bit-equal
-    to the plain version. Returns the phase's launch counts."""
+    to the plain version. Returns the phase's launch counts and
+    ``per_level_timing``'s rows (timed after the counts are read)."""
     import numpy as np
     import torch
     from repro_torch.core import device_tree as dt, traversal
@@ -592,7 +610,56 @@ def routing_phase(idx, dev) -> dict:
     print(f"# launches over the routing phase: "
           f"{ {n: c for n, c in counts.items() if c} } "
           f"({time.time()-t0:.1f}s)")
-    return counts
+    return counts, per_level_timing(q, mb, pa, degen, sizes)
+
+
+def per_level_timing(q, mb, pa, degen, sizes) -> dict:
+    """The per-level step of the routing tree (the dense walk with the
+    degenerate table): its device activities (CUPTI) must be one
+    mbr_intersect launch a level and nothing else; timed between events
+    and on the device. Then mbr_intersect alone on the two widest levels,
+    plain and folded (the level above's mask through the parents).
+    Returns the widest levels' rows for the JSON line."""
+    from repro_torch.kernels import ops, ref
+
+    def step():
+        return ops.traverse_fused(q, mb, pa, slices=degen)
+    ev = profiled_events(step)
+    check(bool(ev), "routing: CUPTI recorded no activity of the per-level "
+          "step")
+    only = all("mbr_intersect_kernel" in n for n in kernel_means(ev))
+    # CUPTI can drop a few records of a run: a step's activities are the
+    # recorded ones a step, rounded up, and its time their mean times that
+    acts = -(-len(ev) // TIMING_REPS)
+    busy = sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3 * acts
+    print(f"  per-level step (degenerate table): {acts} device activities "
+          f"a step, all mbr_intersect: {only} ({len(ev)} recorded over "
+          f"{TIMING_REPS} steps); device {busy:.4f} ms, "
+          f"{event_ms(step):.4f} ms between events")
+    check(only and acts == len(sizes),
+          f"routing: the per-level step ran {acts} activities a step, all "
+          f"mbr_intersect: {only}; want {len(sizes)} mbr_intersect launches")
+    B, rows = q.shape[0], {}
+    for lvl in (len(sizes) - 2, len(sizes) - 1):
+        n, n_prev = sizes[lvl], sizes[lvl - 1]
+        launch, _ = ops.prepare("mbr_intersect", q, mb[lvl])
+        r = kernel_row("mbr_intersect", 0, launch,
+                       lambda lvl=lvl: ref.mbr_intersect(q, mb[lvl]),
+                       (B + n) * 16 + B * n, B * n * 4,
+                       label=f" (routing level, {B} x {n})")
+        parent = ref.traverse_fused(q, mb[:lvl], pa[:lvl])
+        launch, _ = ops.prepare("mbr_intersect", q, mb[lvl], parent,
+                                pa[lvl])
+        f = kernel_row("mbr_intersect", 0, launch,
+                       lambda lvl=lvl, parent=parent: ref.mbr_intersect(
+                           q, mb[lvl], parent, pa[lvl]),
+                       (B + n) * 16 + B * n + n * 4 + B * n_prev,
+                       B * n * 4,
+                       label=f" (routing level folded, {B} x {n})")
+        rows[str(n)] = {side: {key: x[key] for key in
+                               ("ms", "plain_ms", "bound_ms", "bound_by")}
+                        for side, x in (("plain", r), ("folded", f))}
+    return rows
 
 
 def large_index(dev, card, points: int):
@@ -2042,7 +2109,9 @@ def main(argv=None) -> int:
     counts.update(ocounts)
 
     # -- the walk ladder's rungs, then the 40M-point index's streams
-    counts["routing"] = routing_phase(idx, dev)
+    counts["routing"], routing_levels = routing_phase(idx, dev)
+    next(r for r in rows if r["name"] == "mbr_intersect")["routing"] = \
+        routing_levels
     if opts.large_points != LARGE_POINTS:
         print(f"# CUT: the large index holds {opts.large_points} points "
               f"instead of {LARGE_POINTS}")

@@ -7,8 +7,9 @@ fused kernel (``kernels.ops.traverse_fused``), and on the serving paths
 one kernel that also compacts the visited set into a slot table
 (``kernels.ops.traverse_compact``: the ``[B, L]`` mask never exists); a
 tree too large for one CTA's shared memory walks through its ancestor
-windows (``DeviceTree.aslices``), and past even that level by level on
-the ``mbr_intersect`` kernel. On the CPU the plain versions run the
+windows (``DeviceTree.aslices``), and past even that level by level, one
+``mbr_intersect`` launch a level that also folds in the level above's
+mask through the parents. On the CPU the plain versions run the
 per-level loop. Mask→index compaction is sort-free (prefix-count ranks +
 a rowwise binary search).
 

@@ -174,7 +174,7 @@ KERNELS = {
         "src/repro/kernels/delta_probe.py:123"),
     "mbr_intersect": Kernel(
         "mbr_intersect", "mbr_intersect_launch",
-        [_P, _I, _P, _I, _P, _P],
+        [_P, _I, _P, _I, _P, _P, _I, _P, _P],
         "src/repro/kernels/mbr_intersect.py:42"),
     "traverse_fused_sliced": Kernel(
         "traverse_fused_sliced", "traverse_fused_sliced_launch",

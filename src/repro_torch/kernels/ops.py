@@ -354,12 +354,22 @@ def _prep_traverse_compact_sliced(queries, level_mbrs, level_parents, sl, k,
     return launch, (idx, cnt)
 
 
-def _prep_mbr_intersect(queries, mbrs):
+def _prep_mbr_intersect(queries, mbrs, parent_mask=None, parents=None):
     B, N = queries.shape[0], mbrs.shape[0]
+    fold = (None, None, 0)
+    if parents is not None:
+        Np = parent_mask.shape[-1]
+        if parent_mask.shape != (B, Np) or parents.shape != (N,) or \
+                (N and not Np):
+            raise ValueError(f"mbr_intersect: parent_mask "
+                             f"{tuple(parent_mask.shape)} / parents "
+                             f"{tuple(parents.shape)} do not match {B} "
+                             f"queries and {N} MBRs")
+        fold = (_c(parent_mask, torch.bool), _c(parents, torch.int32), Np)
     out = torch.empty((B, N), dtype=torch.bool, device=queries.device)
     launch = _launcher("mbr_intersect", queries.device,
-                       _c(queries, torch.float32), B, _c(mbrs, torch.float32),
-                       N, out)
+                       _c16(queries, torch.float32), B,
+                       _c16(mbrs, torch.float32), N, *fold, out)
     return launch, out
 
 
@@ -576,22 +586,32 @@ def prepare(name: str, *args):
 # public wrappers
 # ---------------------------------------------------------------------------
 
-def mbr_intersect(queries: torch.Tensor, mbrs: torch.Tensor) -> torch.Tensor:
-    """[B, 4] × [N, 4] → [B, N] bool, closed-rectangle intersection."""
-    if not _on_cuda(queries, mbrs):
-        return ref.mbr_intersect(queries, mbrs)
-    launch, out = _prep_mbr_intersect(queries, mbrs)
+def mbr_intersect(queries: torch.Tensor, mbrs: torch.Tensor,
+                  parent_mask: torch.Tensor | None = None,
+                  parents: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, 4] × [N, 4] → [B, N] bool, closed-rectangle intersection; with
+    the level above's ``parent_mask`` [B, N_prev] and the MBRs' ``parents``
+    [N] (any order, each in [0, N_prev)), ``parent_mask[:, parents] & hit``
+    in the same launch."""
+    if (parent_mask is None) != (parents is None):
+        raise ValueError("mbr_intersect: give parent_mask and parents "
+                         "together, or neither")
+    fold = () if parents is None else (parent_mask, parents)
+    if not _on_cuda(queries, mbrs, *fold):
+        return ref.mbr_intersect(queries, mbrs, *fold)
+    launch, out = _prep_mbr_intersect(queries, mbrs, *fold)
     if out.numel():
         launch()
     return out
 
 
 def _per_level_walk(queries, level_mbrs, level_parents) -> torch.Tensor:
-    """The ladder's last rung: one ``mbr_intersect`` per level, the
-    frontier masks through device memory."""
+    """The ladder's last rung: one ``mbr_intersect`` per level, each
+    folding the level above's mask through its parents; the frontier
+    masks go through device memory."""
     mask = mbr_intersect(queries, level_mbrs[0])
     for mbrs, parent in zip(level_mbrs[1:], level_parents[1:]):
-        mask = mask[:, parent.long()] & mbr_intersect(queries, mbrs)
+        mask = mbr_intersect(queries, mbrs, mask, parent)
     return mask
 
 

@@ -14,10 +14,21 @@ import torch
 from repro_torch.core import geometry as geo
 
 
-def mbr_intersect(queries: torch.Tensor, mbrs: torch.Tensor) -> torch.Tensor:
-    """[B, 4] × [N, 4] → [B, N] bool (closed-rectangle intersection)."""
-    return geo.torch_cross_intersects(queries.to(torch.float32),
-                                      mbrs.to(torch.float32))
+def mbr_intersect(queries: torch.Tensor, mbrs: torch.Tensor,
+                  parent_mask: torch.Tensor | None = None,
+                  parents: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, 4] × [N, 4] → [B, N] bool (closed-rectangle intersection);
+    with the level above's ``parent_mask`` [B, N_prev] and the MBRs'
+    ``parents`` [N], ``parent_mask[:, parents] & hit``: one step of the
+    per-level walk."""
+    if (parent_mask is None) != (parents is None):
+        raise ValueError("mbr_intersect: give parent_mask and parents "
+                         "together, or neither")
+    hit = geo.torch_cross_intersects(queries.to(torch.float32),
+                                     mbrs.to(torch.float32))
+    if parents is None:
+        return hit
+    return parent_mask[:, parents.long()] & hit
 
 
 def traverse_fused(queries: torch.Tensor, level_mbrs: Sequence[torch.Tensor],
@@ -30,7 +41,7 @@ def traverse_fused(queries: torch.Tensor, level_mbrs: Sequence[torch.Tensor],
     """
     mask = mbr_intersect(queries, level_mbrs[0])
     for mbrs, parent in zip(level_mbrs[1:], level_parents[1:]):
-        mask = mask[:, parent.long()] & mbr_intersect(queries, mbrs)
+        mask = mbr_intersect(queries, mbrs, mask, parent)
     return mask
 
 

@@ -238,6 +238,25 @@ def test_forest_infer_cells_kernel(cuda, T, D, Cl, ids):
     assert kcuda.KERNELS["forest_infer_cells"].launches == before
 
 
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("Cl", [670, 672, 671])
+def test_forest_infer_cells_kernel_label_vectors(cuda, T, Cl):
+    """The deployment's 670 labels (float2 vectors) and 672 / 671 (float4
+    and scalar), 515 queries with runs of repeated queries (their rows
+    reuse the vectors in registers) and an empty cell, the tables a view
+    off 16 bytes (the wrapper copies it): bit-equal, one launch."""
+    rng = np.random.default_rng(T + Cl)
+    x, fi, th, tb = forest_cells_inputs(rng, 515, 7, T, 4, Cl)
+    x[20:40] = x[19]
+    args = [_g(a, cuda) for a in (x, fi, th, tb)]
+    odd = torch.empty(tb.size + 1, dtype=torch.float32, device=cuda)
+    odd[1:] = args[3].reshape(-1)
+    args[3] = odd[1:].view(tb.shape)
+    got = _launched("forest_infer_cells",
+                    lambda: ops.forest_infer_cells(*args, n_cells=7))
+    assert torch.equal(got, ref.forest_infer_cells(*args, 7))
+
+
 def test_forest_bank_cuda_equals_cpu(cuda):
     """The port's forest build on the card and on the CPU: the same bank
     (host fit), ``cell_probs_dense`` through the kernel bit-equal to the
@@ -414,6 +433,51 @@ def test_mbr_intersect_kernel(cuda):
     got = _launched("mbr_intersect", lambda: ops.mbr_intersect(qg, mg))
     assert torch.equal(got, ref.mbr_intersect(qg, mg))
     assert got[0, 0] and got[1, 5] and not got[2].any()
+
+
+@pytest.mark.parametrize("B", [1, 33, 512])
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 1000, 12_730, 12_731])
+def test_mbr_intersect_kernel_widths(cuda, N, B):
+    """Bit-equal at widths around the 16-byte block and the 512-MBR tile
+    and at the deployment's leaf level (12,730: rows 2-byte aligned),
+    with rects touching only at an edge; one launch."""
+    rng = np.random.default_rng(N + B)
+    m = rects(rng, N, size=0.05)
+    q = rects(rng, B, -0.1, 1.0, 0.2)
+    q[0] = [m[0, 2], m[0, 1], m[0, 2] + 0.01, m[0, 3]]      # edge
+    qg, mg = _g(q, cuda), _g(m, cuda)
+    got = _launched("mbr_intersect", lambda: ops.mbr_intersect(qg, mg))
+    assert torch.equal(got, ref.mbr_intersect(qg, mg))
+    assert got[0, 0]
+
+
+@pytest.mark.parametrize("order", ["non_decreasing", "shuffled"])
+@pytest.mark.parametrize("N", [17, 9001])
+def test_mbr_intersect_folded_kernel(cuda, order, N):
+    """The folded form (``parent_mask[:, parents] & hit`` in one launch)
+    bit-equal to the plain version with parents in order and shuffled
+    (not contiguous), dead and live parent rows; an empty batch launches
+    nothing."""
+    rng = np.random.default_rng(N)
+    n_prev, B = 257, 77
+    m = rects(rng, N, size=0.05)
+    q = rects(rng, B, -0.1, 1.0, 0.3)
+    parents = np.sort(rng.integers(0, n_prev, N)).astype(np.int32)
+    if order == "shuffled":
+        parents = rng.permutation(parents)
+    pm = rng.uniform(size=(B, n_prev)) < 0.7
+    pm[1] = True
+    pm[2] = False
+    qg, mg, pmg, pg = (_g(a, cuda) for a in (q, m, pm, parents))
+    got = _launched("mbr_intersect",
+                    lambda: ops.mbr_intersect(qg, mg, pmg, pg))
+    assert torch.equal(got, ref.mbr_intersect(qg, mg, pmg, pg))
+    assert torch.equal(got[1], ref.mbr_intersect(qg, mg)[1])
+    assert not got[2].any()
+    before = kcuda.KERNELS["mbr_intersect"].launches
+    empty = ops.mbr_intersect(qg[:0], mg, pmg[:0], pg)
+    assert tuple(empty.shape) == (0, N)
+    assert kcuda.KERNELS["mbr_intersect"].launches == before
 
 
 def _sliced_tree(cuda, L=20_000, fanout=6, tl=512, table="built"):
