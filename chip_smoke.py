@@ -23,6 +23,10 @@ Phases, each failing the run (non-zero exit) on its own error:
    mask and slot counts at the narrow K 64 and at the join's wide K 512;
    traverse_compact on the batch at k 64 and at the wide k 512;
    forest_infer on the router's features, which it gathers itself;
+   spatial_key through its contract (rects and frame in) on the stream's
+   rects, the edge centres as degenerate rects under the unit frame, a
+   zero-extent frame and ``bbox=None``, a call with a frame one device
+   activity (CUPTI);
    knn_browse in both forms, the [B, K, M] distances and the selecting
    form ``knn_query`` calls (the k smallest, their ids and the in-radius
    count), on edge rows, then the selecting form timed on the kNN
@@ -79,7 +83,8 @@ Phases, each failing the run (non-zero exit) on its own error:
    level and nothing else; the step timed, and mbr_intersect on the two
    widest levels, plain and folded); a single-level tree is one
    mbr_intersect; launch counts per step, each result bit-equal to its
-   plain version;
+   plain version; then traverse_fused_sliced timed on the 1.5M-leaf tree
+   with its built table (512 x 1.5M, against the mask write's bound);
 11. build the large index (``tweets_like`` 40M points, 20x the paper's
    Tweets set, ``str_bulk`` at capacity 128, flattened onto the card),
    whose compact walk needs the ancestor-sliced kernel, and serve the
@@ -523,8 +528,9 @@ def routing_phase(idx, dev) -> dict:
     table (every window the whole lane-padded level) the dense walk takes
     the per-level mbr_intersect loop and the compact walk stays sliced;
     a single-level tree is one mbr_intersect. Each result is bit-equal
-    to the plain version. Returns the phase's launch counts and
-    ``per_level_timing``'s rows (timed after the counts are read)."""
+    to the plain version. Returns the phase's launch counts,
+    ``per_level_timing``'s rows and ``sliced_timing``'s row (both timed
+    after the counts are read)."""
     import numpy as np
     import torch
     from repro_torch.core import device_tree as dt, traversal
@@ -610,7 +616,41 @@ def routing_phase(idx, dev) -> dict:
     print(f"# launches over the routing phase: "
           f"{ {n: c for n, c in counts.items() if c} } "
           f"({time.time()-t0:.1f}s)")
-    return counts, per_level_timing(q, mb, pa, degen, sizes)
+    return counts, per_level_timing(q, mb, pa, degen, sizes), \
+        sliced_timing(q, mb, pa, sl)
+
+
+def sliced_timing(q, mb, pa, sl) -> dict:
+    """traverse_fused_sliced on the routing tree with its built table
+    (the dense walk's rung there): bit-equal to the full walk's kernel
+    (off its rung: launched directly), then timed on the device (CUPTI),
+    its plain version (thousands of launches a call) once between
+    events, against the [B, L] mask write's bound. Returns the row's
+    numbers for the JSON line."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    B, L = q.shape[0], int(mb[-1].shape[0])
+    tests, nodes = walk_work(q, mb, pa)
+    b, by = bound_ms(B * 16 + nodes * 20 + sl.starts.numel() * 4 + B * L,
+                     tests * 4)
+    launch, vis = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
+    flaunch, full = ops.prepare("traverse_fused", q, mb, pa)
+    launch()
+    flaunch()
+    check(torch.equal(vis, full), "routing: the sliced dense walk differs "
+          "from the full walk's kernel")
+    del flaunch, full
+    passes = kernel_means(profiled_events(launch,
+                                          "traverse_fused_sliced_kernel"))
+    ms = sum(passes.values()) if passes else event_ms(launch)
+    plain_ms = event_ms(lambda: ref.traverse_fused_sliced(
+        q, mb, pa, sl.starts, sl.widths, sl.tl), reps=1)
+    print(f"  traverse_fused_sliced (routing tree, {B} x {L}): bit-equal "
+          f"to the full walk's kernel; kernel "
+          f"{ms:.4f} ms ({'cupti' if passes else 'cuda-events'}; "
+          f"{event_ms(launch):.4f} ms between events), plain {plain_ms:.4f} "
+          f"ms (one call between events), bound {b:.4f} ms ({by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}
 
 
 def per_level_timing(q, mb, pa, degen, sizes) -> dict:
@@ -833,10 +873,15 @@ def knn_batches(tree, pts, kargs, dev):
 
 
 def spatial_key_check(idx, dev) -> dict:
-    """spatial_key, both curves, on the stream's 4096 normalized centres
-    plus edge rows (the frame's corners — 1.0 clips to 32767 — centres
-    outside it, exact quantization steps and the floats just below), and
-    through the wrapper with a zero-extent frame. Bit-equal."""
+    """spatial_key through its contract (rects and frame in, keys out, one
+    launch), both curves: the stream's 4096 rects in the workload's
+    frame; the edge centres (the frame's corners — 1.0 clips to 32767 —
+    centres outside it, exact quantization steps and the floats just
+    below, ±inf) as degenerate rects (c, c, c, c) under the unit frame,
+    which normalizes each to exactly c; a zero-extent frame; and
+    ``bbox=None``. Bit-equal to ``ref.spatial_key(ops.spatial_key_inputs
+    (...))``. A wrapper call with the workload's frame must be one device
+    activity, the key kernel (CUPTI)."""
     import numpy as np
     import torch
     from repro_torch.core import schedule
@@ -844,32 +889,45 @@ def spatial_key_check(idx, dev) -> dict:
     wq = idx.workload.queries
     q = torch.from_numpy(wq).to(dev)
     bbox = torch.from_numpy(schedule.workload_bbox(wq)).to(dev)
-    cxy = ops.spatial_key_inputs(q, bbox)
     steps = np.array([1, 2, 3, 1000, 32767], np.float32) / np.float32(32768)
-    edge = [[0, 0], [1, 1], [0, 1], [1, 0], [-0.5, 1.5], [1.5, -0.25],
-            [-1e10, 1e10], [np.inf, -np.inf]] + [[v, v] for v in steps] \
-        + [[np.nextafter(v, np.float32(0)), v] for v in steps]
-    cxy_e = torch.cat([cxy, torch.tensor(np.asarray(edge, np.float32),
-                                         device=dev)])
+    edge = np.asarray(
+        [[0, 0], [1, 1], [0, 1], [1, 0], [-0.5, 1.5], [1.5, -0.25],
+         [-1e10, 1e10], [np.inf, -np.inf]] + [[v, v] for v in steps]
+        + [[np.nextafter(v, np.float32(0)), v] for v in steps], np.float32)
+    e = torch.from_numpy(edge).to(dev)
+    rect_e = torch.cat([e, e], 1)
+    unit = torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev)
+    check(torch.equal(ops.spatial_key_inputs(rect_e, unit), e),
+          "spatial_key: a degenerate rect under the unit frame does not "
+          "normalize to its centre")
     flat = torch.cat([q[0, :2], q[0, :2]])           # zero-extent frame
     for curve in ("morton", "hilbert"):
-        launch, keys = ops.prepare("spatial_key", cxy_e, curve)
-        launch()
-        mism = int((keys != ref.spatial_key(cxy_e, curve=curve)).sum())
-        cf = ops.spatial_key_inputs(q, flat)
-        launch, kf = ops.prepare("spatial_key", cf, curve)
-        launch()
-        mism += int((kf != ref.spatial_key(cf, curve=curve)).sum())
+        mism = 0
+        for rects, frame in ((q, bbox), (rect_e, unit), (q, flat), (q, None)):
+            launch, keys = ops.prepare("spatial_key", rects, frame, curve)
+            launch()
+            mism += int((keys != ref.spatial_key(
+                ops.spatial_key_inputs(rects, frame), curve=curve)).sum())
+            if rects is rect_e:
+                check(int(keys[1]) == int(keys[12]),
+                      f"spatial_key ({curve}): 1.0 does not clip to 32767")
         check(mism == 0, f"spatial_key ({curve}): {mism} mismatches")
-        check(int(keys[len(wq) + 1]) == int(keys[len(wq) + 12]),
-              f"spatial_key ({curve}): 1.0 does not clip to 32767")
-    print(f"  spatial_key: both curves bit-equal on {len(wq)} centres, "
-          f"{len(edge)} edge rows and a zero-extent frame")
-    launch, _ = ops.prepare("spatial_key", cxy, "hilbert")
-    n = cxy.shape[0]
+    ev = profiled_events(lambda: ops.spatial_key(q, bbox, "hilbert"))
+    acts = -(-len(ev) // TIMING_REPS)
+    names = sorted(kernel_means(ev))
+    print(f"  spatial_key: both curves bit-equal on {len(wq)} rects, "
+          f"{len(edge)} edge centres as degenerate rects, a zero-extent "
+          f"frame and bbox=None; ops.spatial_key with the workload's frame: "
+          f"{acts} device activity a call ({names})")
+    check(acts == 1 and all("spatial_key_kernel" in n for n in names),
+          f"spatial_key: a call with a frame ran {acts} device activities "
+          f"({names}), want the key kernel alone")
+    launch, _ = ops.prepare("spatial_key", q, bbox, "hilbert")
+    n = q.shape[0]
     return kernel_row("spatial_key", 0, launch,
-                      lambda: ref.spatial_key(cxy, curve="hilbert"),
-                      n * 12, n * 15 * 16)
+                      lambda: ref.spatial_key(
+                          ops.spatial_key_inputs(q, bbox), curve="hilbert"),
+                      n * 16 + 16 + n * 4, n * (8 + 15 * 16))
 
 
 def walk_work(q, mb, pa) -> tuple[int, int]:
@@ -2109,9 +2167,12 @@ def main(argv=None) -> int:
     counts.update(ocounts)
 
     # -- the walk ladder's rungs, then the 40M-point index's streams
-    counts["routing"], routing_levels = routing_phase(idx, dev)
+    counts["routing"], routing_levels, routing_sliced = routing_phase(idx,
+                                                                      dev)
     next(r for r in rows if r["name"] == "mbr_intersect")["routing"] = \
         routing_levels
+    next(r for r in rows if r["name"] == "traverse_fused_sliced")[
+        "routing"] = routing_sliced
     if opts.large_points != LARGE_POINTS:
         print(f"# CUT: the large index holds {opts.large_points} points "
               f"instead of {LARGE_POINTS}")

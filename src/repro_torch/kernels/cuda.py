@@ -156,7 +156,7 @@ KERNELS = {
         "src/repro/kernels/forest_infer.py:112"),
     "spatial_key": Kernel(
         "spatial_key", "spatial_key_launch",
-        [_P, _I, _I, _I, _P, _P],
+        [_P, _P, _I, _I, _I, _P, _P],
         "src/repro/kernels/spatial_key.py:93"),
     "traverse_compact": Kernel(
         "traverse_compact", "traverse_compact_launch",

@@ -25,7 +25,8 @@ the full-walk kernel, over the tree's ``WalkPack`` (packed from the
 levels when the caller has none; parents that are not non-decreasing
 then raise ``ValueError``); past that, the ancestor-sliced kernel over
 the tree's ``AncestorTable`` (built from the parents when the caller has
-none); and when even the sliced walk does not fit, the per-level loop of
+none) within the sliced rung's reach (``sliced_rung_bytes``); and when
+even the sliced walk does not fit, the per-level loop of
 ``mbr_intersect`` launches. CPU tensors take none of these rungs: they
 run the one plain walk (``ref.traverse_fused`` / ``ref.traverse_compact``),
 as the reference does with its kernels off.
@@ -59,7 +60,18 @@ COMPACT_WARPS = 4
 # unmeasured. A tree takes the full rung only within this reach too, so
 # every tree keeps the rung it had (ROADMAP: open question).
 FULL_RUNG_ROWS = {"fused": 8, "compact": 4}
-SLICED_QUERY_TILE = 8           # kQT in csrc/traverse_fused_sliced.cu
+# The sliced dense walk's queries per CTA and its leaf round as a tile row
+# of 32-bit words (kQT and kRowWords in csrc/traverse_fused_sliced.cu:
+# 512 leaves, 2 a thread, and four words of padding), and the sliced
+# rung's reach: the redesigned kernel asks for a 32-bit row mask a window
+# node of every level where the first asked for a byte a (query, node)
+# for 8 queries, twice, at the widest window; measured by its own need
+# the routing tree's degenerate windows would leave the per-level rung,
+# so a table takes the sliced rung only within the first kernel's need
+# too.
+SLICED_QUERY_TILE = 32
+SLICED_ROW_WORDS = 512 // 4 + 4
+SLICED_RUNG_ROWS = 8
 COMPACT_SLICED_QUERY_TILE = 8   # kQT in csrc/traverse_compact_sliced.cu
 COMPACT_SLICED_ROUND_WORDS = 16  # kRound / 32 there: bitmap words a row
 FOREST_QUERY_TILE = 32    # kQT in csrc/forest_infer_cells.cu
@@ -143,7 +155,10 @@ def walk_smem(kind: str, route: str, level_sizes: Sequence[int],
         return compact_warps(width) * 2 * width * 8
     if route == "sliced":
         if kind == "fused":
-            return 2 * SLICED_QUERY_TILE * max(widths)
+            # the mask tile, kQT rows of a leaf round; and a kQT-bit row
+            # mask a node of every level's window
+            return SLICED_QUERY_TILE * SLICED_ROW_WORDS * 4 + \
+                sum(widths) * (SLICED_QUERY_TILE // 8)
         # one kQT-bit mask per window node (16-byte aligned), and the
         # write pass's bitmap of a round's words a row
         mask = 1 if COMPACT_SLICED_QUERY_TILE <= 8 else \
@@ -172,6 +187,18 @@ def full_rung_bytes(kind: str, level_sizes: Sequence[int]) -> int:
     return rows * ((level_sizes[-1] + 31) // 32 * 4 + 2 * width)
 
 
+def sliced_rung_bytes(kind: str, level_sizes: Sequence[int],
+                      widths: Sequence[int], tl: int) -> int:
+    """The sliced rung's reach for walk ``kind`` with a table of window
+    ``widths`` and leaf tile ``tl``: for the dense walk the shared memory
+    its first kernel asked for (a byte a (query, window node) for
+    ``SLICED_RUNG_ROWS`` queries, twice), for the compact walk its
+    kernel's own need."""
+    if kind == "fused":
+        return 2 * SLICED_RUNG_ROWS * max(widths)
+    return walk_smem(kind, "sliced", level_sizes, widths, tl)
+
+
 def walk_route(kind: str, level_sizes: Sequence[int],
                widths: Sequence[int] | None = None,
                tl: int | None = None) -> str:
@@ -181,7 +208,8 @@ def walk_route(kind: str, level_sizes: Sequence[int],
     the full rung's reach (``full_rung_bytes``) and the full walk's shared
     memory fit ``MAX_DYNAMIC_SMEM``, else ``"sliced"`` when
     an ancestor table of window ``widths`` and leaf tile ``tl`` is given
-    and its walk fits, else ``"per_level"``."""
+    and both the sliced rung's reach (``sliced_rung_bytes``) and its
+    walk's shared memory fit, else ``"per_level"``."""
     if kind not in ("fused", "compact"):
         raise ValueError(f"walk kind must be fused or compact, got {kind!r}")
     if len(level_sizes) == 1:
@@ -190,7 +218,8 @@ def walk_route(kind: str, level_sizes: Sequence[int],
            walk_smem(kind, "full", level_sizes)) <= MAX_DYNAMIC_SMEM:
         return "full"
     if widths is not None and \
-            walk_smem(kind, "sliced", level_sizes, widths, tl) <= \
+            max(sliced_rung_bytes(kind, level_sizes, widths, tl),
+                walk_smem(kind, "sliced", level_sizes, widths, tl)) <= \
             MAX_DYNAMIC_SMEM:
         return "sliced"
     return "per_level"
@@ -502,16 +531,25 @@ def _prep_knn_browse_topk(centers, leaf_entries, entry_ids, leaf_idx, valid,
     return launch, (d2k, ids, n_within)
 
 
-def _prep_spatial_key(cxy, curve, order=15):
+def _prep_spatial_key(queries, bbox, curve, order=15):
     if curve not in CURVES:
         raise ValueError(f"curve must be one of {sorted(CURVES)}, got "
                          f"{curve!r}")
     if not 1 <= order <= 15:
         raise ValueError(f"order must be in [1, 15], got {order}")
-    B = cxy.shape[0]
-    out = torch.empty((B,), dtype=torch.int32, device=cxy.device)
-    launch = _launcher("spatial_key", cxy.device, _c(cxy, torch.float32), B,
-                       CURVES[curve], order, out)
+    if queries.ndim != 2 or queries.shape[1] != 4:
+        raise ValueError(f"spatial_key takes [B, 4] rects, got "
+                         f"{tuple(queries.shape)}")
+    frame = key_frame(queries, bbox)
+    if tuple(frame.shape) != (4,):
+        raise ValueError(f"spatial_key: the frame must be [4] (xmin, ymin, "
+                         f"xmax, ymax), got {tuple(frame.shape)}")
+    B = queries.shape[0]
+    out = torch.empty((B,), dtype=torch.int32, device=queries.device)
+    launch = _launcher("spatial_key", queries.device,
+                       _c16(queries, torch.float32),
+                       _c16(frame, torch.float32), B, CURVES[curve], order,
+                       out)
     return launch, out
 
 
@@ -777,33 +815,51 @@ def delta_probe(queries: torch.Tensor, pts: torch.Tensor, *, k: int
     return idx, valid, cnt
 
 
+def _centres(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rect centres ``((q0+q2)*0.5, (q1+q3)*0.5)``, f32."""
+    q = queries.to(torch.float32)
+    return (q[:, 0] + q[:, 2]) * 0.5, (q[:, 1] + q[:, 3]) * 0.5
+
+
+def key_frame(queries: torch.Tensor,
+              bbox: torch.Tensor | None = None) -> torch.Tensor:
+    """The keys' frame on the queries' device, [4] f32 xmin/ymin/xmax/ymax:
+    ``bbox``, or the batch's own centre extent when None."""
+    if bbox is None:
+        cx, cy = _centres(queries)
+        return torch.stack([cx.min(), cy.min(), cx.max(), cy.max()])
+    return torch.as_tensor(bbox, dtype=torch.float32, device=queries.device)
+
+
 def spatial_key_inputs(queries: torch.Tensor,
                        bbox: torch.Tensor | None = None) -> torch.Tensor:
-    """The key kernel's input: rect centres ``(q0+q2)*0.5`` normalized by
-    ``bbox`` ([4] xmin/ymin/xmax/ymax; the batch's own centre extent when
-    None) as ``(c - lo) / max(hi - lo, 1e-12)`` → [B, 2] f32."""
-    q = queries.to(torch.float32)
-    cx = (q[:, 0] + q[:, 2]) * 0.5
-    cy = (q[:, 1] + q[:, 3]) * 0.5
-    if bbox is None:
-        bbox = torch.stack([cx.min(), cy.min(), cx.max(), cy.max()])
-    bbox = torch.as_tensor(bbox, dtype=torch.float32, device=q.device)
-    span = torch.clamp(bbox[2:] - bbox[:2], min=1e-12)
-    return (torch.stack([cx, cy], dim=1) - bbox[None, :2]) / span[None, :]
+    """The plain version's first half: rect centres ``(q0+q2)*0.5``
+    normalized by ``key_frame(queries, bbox)`` as ``(c - lo) / max(hi -
+    lo, 1e-12)`` → [B, 2] f32 (what ``ref.spatial_key`` takes)."""
+    cx, cy = _centres(queries)
+    frame = key_frame(queries, bbox)
+    span = torch.clamp(frame[2:] - frame[:2], min=1e-12)
+    return (torch.stack([cx, cy], dim=1) - frame[None, :2]) / span[None, :]
 
 
 def spatial_key(queries: torch.Tensor, bbox: torch.Tensor | None = None,
                 curve: str = "hilbert", order: int = 15) -> torch.Tensor:
     """Space-filling-curve keys of query rects: [B, 4] → [B] i32.
 
-    Centres are normalized by ``bbox`` (pass the workload's, so keys are
-    comparable across batches) and quantized to ``order`` bits;
-    ``curve`` is ``"hilbert"`` or ``"morton"``.
+    Centres are normalized by ``bbox`` ([4] xmin/ymin/xmax/ymax; pass the
+    workload's, so keys are comparable across batches) and quantized to
+    ``order`` bits; ``curve`` is ``"hilbert"`` or ``"morton"``. On the
+    card a call with a frame on the device is one launch that reads the
+    rects and the frame and normalizes in registers. ``bbox=None`` (the
+    batch's own extent) first computes the frame in PyTorch; no serving
+    path takes that branch (``schedule.spatial_keys`` and the runtime
+    always pass the workload's frame). CPU tensors run the plain version,
+    ``ref.spatial_key(spatial_key_inputs(queries, bbox))``.
     """
-    cxy = spatial_key_inputs(queries, bbox)
-    if not _on_cuda(cxy):
-        return ref.spatial_key(cxy, curve=curve, order=order)
-    launch, out = _prep_spatial_key(cxy, curve, order)
+    if not _on_cuda(queries):
+        return ref.spatial_key(spatial_key_inputs(queries, bbox),
+                               curve=curve, order=order)
+    launch, out = _prep_spatial_key(queries, bbox, curve, order)
     if out.numel():
         launch()
     return out

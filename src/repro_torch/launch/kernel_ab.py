@@ -1,13 +1,18 @@
-"""Time ``mbr_intersect`` and ``forest_infer_cells`` against an older source.
+"""Time redesigned kernels against an older source, in turns, on the card.
 
 ``python -m repro_torch.launch.kernel_ab --old DIR [--points 872000]``
 
-``DIR`` holds an older ``mbr_intersect.cu`` and ``forest_infer_cells.cu``
-(``git show <commit>:src/repro_torch/kernels/csrc/<name>.cu`` into a
-directory that ``.gitignore`` lists). Each is built there with
-``kernels.cuda``'s ``nvcc`` flags and called through ``ctypes``, the
+``DIR`` holds older sources of some of ``mbr_intersect.cu``,
+``forest_infer_cells.cu``, ``traverse_fused_sliced.cu`` and
+``spatial_key.cu`` (``git show <commit>:src/repro_torch/kernels/csrc/
+<name>.cu`` into a directory that ``.gitignore`` lists); the A/B of each
+source present runs, the others are skipped. Each is built there with
+``kernels.cuda``'s ``nvcc`` flags and called through ``ctypes``: the
 older ``mbr_intersect`` with its launcher of before the parent gather was
-folded in: ``(queries, B, mbrs, N, out, stream)``.
+folded in, ``(queries, B, mbrs, N, out, stream)``; the older
+``spatial_key`` with its launcher on normalized centres, ``(cxy, B,
+hilbert, order, keys, stream)``; the older ``traverse_fused_sliced`` and
+``forest_infer_cells`` with the launchers they still share with the new.
 
 Each measurement runs in turns, old, new, new, old, on the same inputs,
 after both outputs are held bit-equal (and equal to the plain version):
@@ -21,7 +26,14 @@ after both outputs are held bit-equal (and equal to the plain version):
   and ``&`` between them against ``ops._per_level_walk``;
 * ``forest_infer_cells`` on the deployment's forest bank
   (``fit_airtree(kind="forest")``, as the smoke fits it) on the first
-  batch of 512 queries and on all eight in one call.
+  batch of 512 queries and on all eight in one call;
+* ``traverse_fused_sliced`` on the deployment's first 512 range queries
+  with its tree's own table (``DeviceTree.aslices``), and on the routing
+  queries over ``synth_levels(1.5M, 89)`` with its built table;
+* ``spatial_key`` on the deployment's 4096 range rects in the
+  workload's frame (Hilbert): the older path (``ops.spatial_key_inputs``
+  then the older kernel on the centres) against ``ops.spatial_key`` (one
+  launch), and each kernel alone.
 
 Times: the device time of a call (CUPTI over 30 calls after two: the
 mean activity times the activities a call), the activities a call, the
@@ -45,6 +57,8 @@ import torch
 from repro_torch.kernels import cuda as kcuda, ops, ref
 
 REPS = 30
+AB_KERNELS = ("mbr_intersect", "forest_infer_cells", "traverse_fused_sliced",
+              "spatial_key")
 
 
 def _device(fn) -> tuple[float, int]:
@@ -214,41 +228,115 @@ def forest_part(old_dir: Path, bank, queries: np.ndarray, dev) -> None:
              lambda: [f() for f in news])
 
 
+def sliced_part(old_dir: Path, q, mb, pa, sl, label: str) -> None:
+    """The windowed dense walk, old against new, on the same launcher
+    arguments (the ABI is unchanged), held against the plain version."""
+    P, I, PI = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    old_fn = _old_launcher(old_dir, "traverse_fused_sliced",
+                           (P, I, P, P, PI, I, P, PI, I, I, P, P, I, P, P))
+    launch, out_new = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
+    out_old = torch.empty_like(out_new)
+    args = [*launch.tensors[:-1], out_old]
+    cargs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+
+    def old():
+        _check(old_fn(*cargs, torch.cuda.current_stream().cuda_stream),
+               "traverse_fused_sliced")
+    old()
+    launch()
+    B, L = out_new.shape
+    _same(out_old, out_new, f"old and new traverse_fused_sliced ({label})")
+    _same(out_new, ref.traverse_fused_sliced(q, mb, pa, sl.starts,
+                                             sl.widths, sl.tl),
+          f"traverse_fused_sliced and its plain version ({label})")
+    in_turns(f"traverse_fused_sliced {B} x {L}, windows {list(sl.widths)}, "
+             f"{sl.n_tiles} tiles of {sl.tl} ({label})", old, launch)
+
+
+def keys_part(old_dir: Path, q: torch.Tensor, bbox: torch.Tensor) -> None:
+    """The curve keys: the older path (centres normalized in PyTorch, then
+    the older kernel) against the one-launch call, then each kernel
+    alone; both curves held bit-equal first."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    old_fn = _old_launcher(old_dir, "spatial_key", (P, I, I, I, P, P))
+    B = q.shape[0]
+
+    def old_kernel(cxy, keys, hilbert=1):
+        _check(old_fn(cxy.data_ptr(), B, hilbert, 15, keys.data_ptr(),
+                      torch.cuda.current_stream().cuda_stream),
+               "spatial_key")
+
+    def old_path(curve="hilbert"):
+        cxy = ops.spatial_key_inputs(q, bbox)
+        keys = torch.empty((B,), dtype=torch.int32, device=q.device)
+        old_kernel(cxy, keys, ops.CURVES[curve])
+        return keys
+
+    def new_path(curve="hilbert"):
+        return ops.spatial_key(q, bbox, curve)
+    for curve in ops.CURVES:
+        want = ref.spatial_key(ops.spatial_key_inputs(q, bbox), curve=curve)
+        _same(old_path(curve), new_path(curve),
+              f"old and new spatial_key ({curve})")
+        _same(new_path(curve), want,
+              f"spatial_key and its plain version ({curve})")
+    in_turns(f"spatial_key path, {B} rects, workload frame (old: "
+             f"spatial_key_inputs + kernel; new: one launch)", old_path,
+             new_path)
+    cxy = ops.spatial_key_inputs(q, bbox)
+    keys = torch.empty((B,), dtype=torch.int32, device=q.device)
+    launch, _ = ops.prepare("spatial_key", q, bbox, "hilbert")
+    in_turns(f"spatial_key kernel alone, {B} rects (old: on normalized "
+             f"centres)", lambda: old_kernel(cxy, keys), launch)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, required=True,
-                    help="directory with the older mbr_intersect.cu and "
-                         "forest_infer_cells.cu")
+                    help="directory with older sources of some of "
+                         + ", ".join(f"{n}.cu" for n in AB_KERNELS))
     ap.add_argument("--points", type=int, default=872_000)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab times CUDA kernels: no CUDA device")
-    from repro_torch.core import build, labels
+    names = [n for n in AB_KERNELS if (args.old / f"{n}.cu").exists()]
+    if not names:
+        raise SystemExit(f"no older source of {', '.join(AB_KERNELS)} in "
+                         f"{args.old}")
+    from repro_torch.core import build, labels, schedule
     from repro_torch.data import synth
     from repro_torch.data.synth_tree import synth_levels
     from repro_torch.launch import serve
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    print(f"A/B of {names} against {args.old}")
     dev = torch.device("cuda")
-    kcuda.build_all([kcuda.KERNELS["mbr_intersect"],
-                     kcuda.KERNELS["forest_infer_cells"]])
-    for name in ("mbr_intersect", "forest_infer_cells"):
+    kcuda.build_all([kcuda.KERNELS[n] for n in names])
+    for name in names:
         log = kcuda.KERNELS[name].log_path().read_text()
         print(name, [ln.split("ptxas info    : ")[-1]
                      for ln in log.splitlines() if "registers" in ln])
 
-    # the routing tree and queries of chip_smoke.routing_phase
-    rng = np.random.default_rng(0)
-    mbrs, parents = synth_levels(1_500_000, 89, rng, str_pack=True)
-    mb = [torch.from_numpy(m).to(dev) for m in mbrs]
-    pa = [torch.from_numpy(p).to(dev) for p in parents]
-    c = rng.uniform(-1, 1, (512, 2)).astype(np.float32)
-    wd = rng.uniform(0, 0.004, (512, 2)).astype(np.float32)
-    q = torch.from_numpy(np.concatenate([c - wd, c + wd], 1)).to(dev)
-    mbr_part(args.old, q, mb, "routing tree")
-    per_level_part(args.old, q, mb, pa)
-    del mb, pa
+    # the routing tree, table and queries of chip_smoke.routing_phase
+    if {"mbr_intersect", "traverse_fused_sliced"} & set(names):
+        rng = np.random.default_rng(0)
+        mbrs, parents = synth_levels(1_500_000, 89, rng, str_pack=True)
+        mb = [torch.from_numpy(m).to(dev) for m in mbrs]
+        pa = [torch.from_numpy(p).to(dev) for p in parents]
+        c = rng.uniform(-1, 1, (512, 2)).astype(np.float32)
+        wd = rng.uniform(0, 0.004, (512, 2)).astype(np.float32)
+        q = torch.from_numpy(np.concatenate([c - wd, c + wd], 1)).to(dev)
+        if "mbr_intersect" in names:
+            mbr_part(args.old, q, mb, "routing tree")
+            per_level_part(args.old, q, mb, pa)
+        if "traverse_fused_sliced" in names:
+            from repro_torch.core import device_tree as dt
+            q[0] = torch.tensor([5.0, 5.0, 6.0, 6.0], device=dev)  # empty
+            sliced_part(args.old, q, mb, pa,
+                        dt.build_ancestor_table(pa, device=dev),
+                        "routing tree, built table")
+        del mb, pa
 
     sargs = serve.parse_args([
         "--dataset", "crimes", "--points", str(args.points), "--queries",
@@ -258,10 +346,21 @@ def main(argv=None) -> int:
     qs = synth.synth_queries(pts, sargs.selectivity, sargs.queries,
                              device="cuda")
     wl = labels.make_workload(dtree, qs)
-    mbr_part(args.old, torch.from_numpy(wl.queries[:512].copy()).to(dev),
-             [lv.mbrs for lv in dtree.levels], "deployment tree")
-    hyb, _ = build.fit_airtree(dtree, wl, kind="forest")
-    forest_part(args.old, hyb.ait.bank, wl.queries, dev)
+    q512 = torch.from_numpy(wl.queries[:512].copy()).to(dev)
+    if "mbr_intersect" in names:
+        mbr_part(args.old, q512, [lv.mbrs for lv in dtree.levels],
+                 "deployment tree")
+    if "traverse_fused_sliced" in names:
+        sliced_part(args.old, q512, [lv.mbrs for lv in dtree.levels],
+                    [lv.parent for lv in dtree.levels], dtree.aslices,
+                    "deployment tree, its table")
+    if "spatial_key" in names:
+        keys_part(args.old, torch.from_numpy(wl.queries).to(dev),
+                  torch.from_numpy(schedule.workload_bbox(
+                      wl.queries)).to(dev))
+    if "forest_infer_cells" in names:
+        hyb, _ = build.fit_airtree(dtree, wl, kind="forest")
+        forest_part(args.old, hyb.ait.bank, wl.queries, dev)
     return 0
 
 

@@ -501,20 +501,57 @@ def _sliced_tree(cuda, L=20_000, fanout=6, tl=512, table="built"):
             mbrs)
 
 
+@pytest.mark.parametrize("L,tl", [(20_000, 512), (9_001, 512),
+                                  (20_000, 16), (300_000, 1024)])
 @pytest.mark.parametrize("table", ["built", "degenerate", "shifted"])
-def test_traverse_fused_sliced_kernel(cuda, table):
-    mb, pa, sl, mbrs = _sliced_tree(cuda, table=table)
+def test_traverse_fused_sliced_kernel(cuda, table, L, tl):
+    """Bit-equal to the windowed plain version, and on a built or
+    degenerate table to the full walk's kernel: batches of 1, 15, 17, 70
+    and 513 rows (the last query tile partial), an odd L (no row but row
+    0 starts 16-aligned), a last leaf tile shorter than tl, a batch that
+    misses the root (every tile's walk ends at its first window) and one
+    of small rects in a corner (walks that end in lower windows), and
+    the shifted table's windows past the level's end; tables of so many
+    tiles that a CTA walks several query tiles (tl 16; and tl 1,024,
+    two rounds of leaves a tile); one launch each."""
+    mb, pa, sl, mbrs = _sliced_tree(cuda, L=L, tl=tl, table=table)
+    sizes = [len(m) for m in mbrs]
+    if ops.walk_smem("fused", "sliced", sizes, sl.widths, tl) > \
+            ops.MAX_DYNAMIC_SMEM:       # the 300K tree's degenerate table
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.prepare("traverse_fused_sliced", _g(rects(
+                np.random.default_rng(0), 4), cuda), mb, pa, sl)
+        assert ops.walk_route("fused", sizes, sl.widths, tl) == "per_level"
+        return
     rng = np.random.default_rng(9)
-    q = _g(np.concatenate([edge_queries(rng, mbrs[-1]),
+    base = np.concatenate([edge_queries(rng, mbrs[-1]),
                            rects(rng, 60, -1, 1, 0.1),
-                           [[-2, -2, 2, 2]]]).astype(np.float32), cuda)
-    launch, got = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
-    _launched("traverse_fused_sliced", launch)
-    want = ref.traverse_fused_sliced(q, mb, pa, sl.starts, sl.widths, sl.tl)
-    assert torch.equal(got, want)
-    full = ref.traverse_fused(q, mb, pa)
-    assert torch.equal(got, full) == (table != "shifted")
-    assert not got[0].any() and (table == "shifted" or got[-1].all())
+                           [[-2, -2, 2, 2]]]).astype(np.float32)
+    big = np.concatenate([rects(rng, 513 - len(base), -1, 1, 0.1), base])
+    far = np.tile(np.float32([[5, 5, 6, 6]]), (40, 1))
+    corner = rects(rng, 40, -1, -0.95, 0.02)
+    for qa in (base, base[-1:], base[:15], base[-17:], big, far, corner):
+        q = _g(qa.astype(np.float32), cuda)
+        launch, got = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
+        _launched("traverse_fused_sliced", launch)
+        want = ref.traverse_fused_sliced(q, mb, pa, sl.starts, sl.widths,
+                                         sl.tl)
+        assert torch.equal(got, want)
+        flaunch, full = ops.prepare("traverse_fused", q, mb, pa)
+        flaunch()
+        assert torch.equal(full, ref.traverse_fused(q, mb, pa))
+        if table != "shifted":
+            assert torch.equal(got, full)
+        else:       # the shifted windows only drop leaves
+            assert not (got & ~full).any()
+        if qa is far:
+            assert not got.any()
+    q = _g(base, cuda)
+    got = ops.prepare("traverse_fused_sliced", q, mb, pa, sl)
+    got[0]()
+    assert not got[1][0].any() and (table == "shifted" or got[1][-1].all())
+    assert table != "shifted" or \
+        not torch.equal(got[1], ref.traverse_fused(q, mb, pa))
 
 
 @pytest.mark.parametrize("segments", ["auto", "1", "2", "n_tiles"])
@@ -570,8 +607,10 @@ def test_walk_rungs_through_traversal(cuda, monkeypatch, kind, rung):
         n_points=0, max_entries=8, aslices=sl)
     sizes = [len(m) for m in mbrs]
     limit = {"full": ops.MAX_DYNAMIC_SMEM,
-             "sliced": ops.walk_smem(kind, "sliced", sizes, sl.widths,
-                                     sl.tl),
+             "sliced": max(ops.walk_smem(kind, "sliced", sizes, sl.widths,
+                                         sl.tl),
+                           ops.sliced_rung_bytes(kind, sizes, sl.widths,
+                                                 sl.tl)),
              "per_level": 1}[rung]
     monkeypatch.setattr(ops, "MAX_DYNAMIC_SMEM", limit)
     assert ops.walk_route(kind, sizes, sl.widths, sl.tl) == rung
@@ -598,15 +637,30 @@ def test_walk_rungs_through_traversal(cuda, monkeypatch, kind, rung):
 
 @pytest.mark.parametrize("curve", ["hilbert", "morton"])
 def test_spatial_key_kernel(cuda, curve):
-    c = _g(key_centres(np.random.default_rng(5), n=5000), cuda)
-    launch, got = ops.prepare("spatial_key", c, curve)
-    _launched("spatial_key", launch)
-    assert torch.equal(got, ref.spatial_key(c, curve=curve))
+    """Keys through the contract (rects and frame in, one launch), bit-
+    equal to ``ref.spatial_key(ops.spatial_key_inputs(...))``: the edge
+    centres as degenerate rects (c, c, c, c) under the unit frame, which
+    normalizes each to exactly c (the frame's corners: 1.0 clips to
+    32767; centres outside it; exact quantization steps and the floats
+    just below; ±inf), random rects in a frame, a zero-extent frame and
+    ``bbox=None``; through ``prepare`` and the wrapper."""
+    c = key_centres(np.random.default_rng(5), n=5000)
+    edge = _g(np.concatenate([c, c], 1), cuda)
+    unit = _g(np.array([0, 0, 1, 1], np.float32), cuda)
+    assert torch.equal(ops.spatial_key_inputs(edge, unit), _g(c, cuda))
     q = _g(rects(np.random.default_rng(6), 700, -3, 3, 0.5), cuda)
+    frame = _g(np.array([-1, -2, 1, 2], np.float32), cuda)
     flat = _g(np.array([0.5, 0.5, 0.5, 0.5], np.float32), cuda)
-    got = _launched("spatial_key", lambda: ops.spatial_key(q, flat, curve))
-    want = ref.spatial_key(ops.spatial_key_inputs(q, flat), curve=curve)
-    assert torch.equal(got, want)
+    for r, bbox in ((edge, unit), (q, frame), (q, flat), (q, None)):
+        want = ref.spatial_key(ops.spatial_key_inputs(r, bbox), curve=curve)
+        launch, got = ops.prepare("spatial_key", r, bbox, curve)
+        _launched("spatial_key", launch)
+        assert torch.equal(got, want)
+        got = _launched("spatial_key",
+                        lambda: ops.spatial_key(r, bbox, curve))
+        assert torch.equal(got, want)
+    keys = ops.spatial_key(edge, unit, curve)
+    assert keys[1] == keys[12]          # (1, 1) clips to (32767, 32767)
 
 
 def test_knn_browse_kernel(cuda):

@@ -273,6 +273,181 @@ def test_sliced_plain_matches_reference(case):
 
 
 # ---------------------------------------------------------------------------
+# the card's windowed dense walk, step for step
+# ---------------------------------------------------------------------------
+
+def _hit(q, m):
+    """[Q, 4] × [N, 4] → [Q, N] closed-rectangle hits (NaN rows miss)."""
+    q, m = q[:, None], m[None, :]
+    return (q[..., 0] <= m[..., 2]) & (m[..., 0] <= q[..., 2]) & \
+        (q[..., 1] <= m[..., 3]) & (m[..., 1] <= q[..., 3])
+
+
+def _fused_sliced_mirror(q, mbrs, parents, starts, widths, tl, per=1,
+                         qt=32, chunk=512, row_words=132, dense=8):
+    """``traverse_fused_sliced_kernel``'s CTAs (``csrc/traverse_fused_sliced
+    .cu``): one per (``qt``-query tile, segment of ``per`` consecutive leaf
+    tiles). A ``qt``-bit row mask a node of every level's window; for
+    each tile the walk restarts at the first level whose window moved
+    (or not at all), a node tested only under a live rebased parent
+    (every row past ``dense`` live rows, else the live rows), and a level
+    with no live bit ends the walk and keeps the tiles after it dead
+    until a window at or above it moves. Then rounds of ``chunk`` leaves,
+    2 a thread, into a byte tile of ``row_words`` words a row, and the
+    copy-out: a row's aligned 16-byte blocks from five funnel-shifted
+    words, its head and tail a byte at a time, into a flat buffer aligned
+    at 0. Returns the [B, L] mask and, per tile served, the levels
+    walked and whether it was dead."""
+    B, L = len(q), len(mbrs[-1])
+    n_int = len(mbrs) - 1
+    st = np.asarray(starts)
+    n_tiles = -(-L // tl)
+    out = np.full(B * L, 7, np.uint8)            # every byte is written
+    rows = np.arange(qt, dtype=np.uint32)
+    trace = []
+    for b0 in range(0, B, qt):
+        nq = min(qt, B - b0)
+        qs = np.full((qt, 4), np.nan, np.float32)
+        qs[:nq] = q[b0:b0 + nq]
+        for t0 in range(0, n_tiles, per):
+            masks = [None] * n_int
+            win = [-1] * n_int
+            valid, dead = 0, False
+            for tile in range(t0, min(t0 + per, n_tiles)):
+                c0, c1 = tile * tl, min(tile * tl + tl, L)
+                new = [int(st[l, tile]) * widths[l] for l in range(n_int)]
+                moved = [l for l in range(n_int) if new[l] != win[l]]
+                first = moved[0] if moved else n_int
+                win = new
+                if first < valid:
+                    valid, dead = first, False
+                walked = []
+                while not dead and valid < n_int:
+                    l = valid
+                    n = len(mbrs[l])
+                    g = win[l] + np.arange(widths[l])
+                    inn = (g >= 0) & (g < n)
+                    gm = np.clip(g, 0, n - 1)
+                    if l == 0:
+                        p = np.where(inn, 0, -1)
+                    else:
+                        rel = parents[l][gm].astype(np.int64) - win[l - 1]
+                        p = np.where(inn & (rel >= 0) & (rel < widths[l - 1]),
+                                     rel, -1)
+                    live = np.where(p < 0, np.uint32(0),
+                                    np.uint32(0xffffffff) if l == 0 else
+                                    masks[l - 1][np.maximum(p, 0)])
+                    bit = ((live.astype(np.uint32)[None, :] >> rows[:, None])
+                           & 1).astype(bool)
+                    mk = bit & _hit(qs, mbrs[l][gm])
+                    masks[l] = (mk.astype(np.uint32) << rows[:, None]).sum(
+                        0, dtype=np.uint64).astype(np.uint32)
+                    walked.append(l)
+                    valid = l + 1
+                    dead = not masks[l].any()
+                trace.append((walked, dead))
+                pw, ps = widths[-1], win[-1]
+                for r0 in range(c0, c1, chunk):
+                    i = r0 + np.arange(chunk)
+                    p = np.where(i < c1, parents[-1][np.minimum(i, L - 1)],
+                                 -1)
+                    rel = p.astype(np.int64) - ps
+                    ok = (rel >= 0) & (rel < pw)
+                    live = np.zeros(chunk, np.uint32) if dead else \
+                        np.where(ok, masks[-1][np.clip(rel, 0, pw - 1)], 0)
+                    bit = ((live.astype(np.uint32)[None, :] >> rows[:, None])
+                           & 1).astype(bool)
+                    tb = np.zeros((qt, row_words * 4), np.uint8)
+                    tb[:, :chunk] = bit & _hit(
+                        qs, mbrs[-1][np.minimum(i, L - 1)])
+                    words = tb.view("<u4").astype(np.uint64)
+                    n = min(chunk, c1 - r0)
+                    for j in range(nq):
+                        s = (b0 + j) * L + r0
+                        head = min((16 - s % 16) % 16, n)
+                        nb = (n - head) // 16
+                        tail = head + 16 * nb
+                        for k in range(nb):
+                            x = head + 16 * k
+                            w = words[j, x // 4:x // 4 + 5]
+                            v = ((w[1:] << np.uint64(32)) | w[:4]) >> \
+                                np.uint64(8 * (x % 4))
+                            out[s + x:s + x + 16] = (v & np.uint64(
+                                0xffffffff)).astype("<u4").view(np.uint8)
+                        for x in list(range(head)) + list(range(tail, n)):
+                            out[s + x] = tb[j, x]
+    assert out.max() <= 1
+    return out.reshape(B, L).astype(bool), trace
+
+
+def _mirror_world(L, tl, table):
+    """A STR hierarchy of ``L`` leaves (fanout 6) and its table at tile
+    ``tl``: ``built``, ``degenerate`` or ``shifted`` (every other tile's
+    leaf-level window one block on, the last tile's past the level's
+    end)."""
+    mbrs, parents = synth_levels(L, 6, np.random.default_rng(L),
+                                 str_pack=True)
+    _, sl = _tables(parents, tl)
+    if table == "degenerate":
+        sl = _degenerate(parents, tl)[1]
+    elif table == "shifted":
+        st = sl.starts.clone()
+        st[1:, 1::2] += 1
+        st[-1, -1] = -(-len(parents[-2]) // sl.widths[-1])
+        sl = dt.AncestorTable(starts=st, widths=sl.widths, tl=tl)
+    return mbrs, parents, sl
+
+
+@pytest.mark.parametrize("per", [1, 3, 100])
+@pytest.mark.parametrize("L,tl", [(1537, 512), (2000, 1024), (1001, 64)])
+@pytest.mark.parametrize("table", ["built", "degenerate", "shifted"])
+def test_fused_sliced_mirror_equals_plain(table, L, tl, per):
+    """The windowed dense walk's CTAs, rehearsed, bit-equal to the plain
+    windowed walk (and to the full walk on a built or degenerate table),
+    with a CTA serving 1, 3 or all of the tiles: batches of 1, 15, 17 and
+    70 rows (partial query tiles), odd L (no row but row 0 starts
+    16-aligned) and a last tile shorter than tl, rounds of 512 leaves in
+    a tile of 1,024, a batch that misses the root (walks that end at the
+    first level, and tiles after it that stay dead) and small rects in a
+    corner (walks that end in lower windows), the shifted table's windows
+    past the level's end; tiles whose windows did not move are not
+    walked again."""
+    mbrs, parents, sl = _mirror_world(L, tl, table)
+    lm, lp = [_t(m) for m in mbrs], [_t(p) for p in parents]
+    rng = np.random.default_rng(L + tl)
+    base = _queries(70, rng)
+    far = np.tile(np.float32([[5, 5, 6, 6]]), (20, 1))
+    corner = np.float32([[-1, -1, -0.95, -0.95]]) + \
+        rng.uniform(0, 0.02, (20, 4)).astype(np.float32)
+    n_tiles = -(-L // tl)
+    for q in (base, base[:1], base[3:18], base[-17:], far, corner):
+        want = ref.traverse_fused_sliced(_t(q), lm, lp, sl.starts, sl.widths,
+                                         sl.tl).numpy()
+        got, trace = _fused_sliced_mirror(q, mbrs, parents, sl.starts,
+                                          sl.widths, sl.tl, per)
+        np.testing.assert_array_equal(got, want)
+        if q is far:        # every walk ends at the root's window
+            assert not got.any() and all(d for _, d in trace)
+            assert all(w == [0] for w, _ in trace[::per])
+        if q is corner and table == "built" and tl <= 512:
+            # and, in a tile far from the corner, in lower windows
+            assert got.any() and any(d and w and w[-1] > 0
+                                     for w, d in trace)
+    got, trace = _fused_sliced_mirror(base, mbrs, parents, sl.starts,
+                                      sl.widths, sl.tl, per)
+    full = ref.traverse_fused(_t(base), lm, lp).numpy()
+    if table != "shifted":
+        np.testing.assert_array_equal(got, full)
+        assert got[3].all()
+    else:       # the shifted windows only drop leaves
+        assert (got != full).any() and not (got & ~full).any()
+    walks = sum(len(w) for w, _ in trace)
+    if per > 1 and table == "degenerate":   # no window ever moves
+        assert walks == len(mbrs[:-1]) * -(-len(base) // 32) * \
+            -(-n_tiles // per)
+
+
+# ---------------------------------------------------------------------------
 # the card kernel's split, rehearsed: count, scan, write
 # ---------------------------------------------------------------------------
 
@@ -515,7 +690,9 @@ def test_walk_route_at_the_port_shapes():
         assert r(kind, sizes, sl.widths, sl.tl) == "sliced"
     degen = tuple(-(-n // 128) * 128 for n in sizes[:-1])
     assert degen[-1] == 16_896
-    assert ops.walk_smem("fused", "sliced", sizes, degen, 512) == 270_336
+    assert ops.sliced_rung_bytes("fused", sizes, degen, 512) == 270_336
+    assert ops.walk_smem("fused", "sliced", sizes, degen, 512) == \
+        32 * 132 * 4 + 4 * sum(degen)
     assert r("fused", sizes, degen, 512) == "per_level"
     assert ops.walk_smem("compact", "sliced", sizes, degen, 512) == 17_920
     assert r("compact", sizes, degen, 512) == "sliced"
@@ -529,8 +706,10 @@ def test_wrappers_follow_the_route(monkeypatch):
     """Whatever rung ``walk_route`` picks for the card, CPU tensors run
     the one plain walk (never the sliced plain versions) and give the
     same mask and slot table, with the tree's table or none; a table of
-    another tree is rejected."""
-    mbrs, parents = synth_levels(3000, 6, np.random.default_rng(2),
+    another tree is rejected. (The sliced dense kernel's tile and row
+    masks pass the full walk's shared memory below ~1,000 nodes a level,
+    so the tree is wide enough for a limit to pick the sliced rung.)"""
+    mbrs, parents = synth_levels(6000, 6, np.random.default_rng(2),
                                  str_pack=True)
     q, lm, lp = _t(_queries(32, np.random.default_rng(3))), \
         [_t(m) for m in mbrs], [_t(p) for p in parents]
@@ -543,9 +722,10 @@ def test_wrappers_follow_the_route(monkeypatch):
         raise AssertionError("CPU walk took a sliced plain version")
     monkeypatch.setattr(ref, "traverse_fused_sliced", never)
     monkeypatch.setattr(ref, "traverse_compact_sliced", never)
-    for limit, route in ((ops.MAX_DYNAMIC_SMEM, "full"),
-                         (ops.walk_smem("fused", "sliced", sizes, sl.widths,
-                                        sl.tl), "sliced"), (1, "per_level")):
+    sliced = max(ops.walk_smem("fused", "sliced", sizes, sl.widths, sl.tl),
+                 ops.sliced_rung_bytes("fused", sizes, sl.widths, sl.tl))
+    for limit, route in ((ops.MAX_DYNAMIC_SMEM, "full"), (sliced, "sliced"),
+                         (1, "per_level")):
         monkeypatch.setattr(ops, "MAX_DYNAMIC_SMEM", limit)
         assert ops.walk_route("fused", sizes, sl.widths, sl.tl) == route
         for slices in (sl, None):

@@ -308,6 +308,46 @@ def test_rungs_of_the_smoke_trees(kind):
     assert r(kind, [64]) == "mbr_intersect"
 
 
+DEPLOYMENT_WINDOWS = (128, 128, 256)
+ROUTING_DEGENERATE = (128, 128, 256, 16_896)
+
+
+@pytest.mark.parametrize("kind", ["fused", "compact"])
+def test_sliced_reach_keeps_every_rung(kind):
+    """With the tables' windows given (the smoke's trees, as its routing
+    and large-index phases print them), every tree takes the rung it took
+    before the windowed dense walk's redesign: the deployment and the
+    40M index's dense walk full, the routing tree sliced with its built
+    table, and with the degenerate one per level for the dense walk
+    (sliced for the compact walk), the 40M index's compact walk sliced.
+    The dense walk's sliced reach is the first kernel's need, a byte a
+    (query, node) of the widest window for 8 queries, twice; its kernel
+    now asks for the mask tile and a 32-bit row mask a window node, less
+    than that on the wide degenerate windows."""
+    r = ops.walk_route
+    assert r(kind, DEPLOYMENT, DEPLOYMENT_WINDOWS, 512) == "full"
+    assert r(kind, ROUTING, ROUTING_WINDOWS, 512) == "sliced"
+    assert r(kind, ROUTING, ROUTING_DEGENERATE, 512) == \
+        ("per_level" if kind == "fused" else "sliced")
+    assert r(kind, LARGE, LARGE_WINDOWS, 512) == \
+        ("full" if kind == "fused" else "sliced")
+    if kind == "compact":
+        return
+    reach = ops.sliced_rung_bytes
+    ws = ops.walk_smem
+    for widths in (DEPLOYMENT_WINDOWS, ROUTING_WINDOWS, ROUTING_DEGENERATE,
+                   LARGE_WINDOWS):
+        assert reach(kind, ROUTING, widths, 512) == 2 * 8 * max(widths)
+        # the mask tile, 32 rows of 132 words, and a 32-bit row mask a
+        # node of every level's window
+        assert ws(kind, "sliced", ROUTING, widths, 512) == \
+            32 * 132 * 4 + 4 * sum(widths)
+    assert ws(kind, "sliced", ROUTING, ROUTING_DEGENERATE, 512) == 86_528 \
+        < ops.MAX_DYNAMIC_SMEM < reach(kind, ROUTING, ROUTING_DEGENERATE,
+                                       512) == 270_336
+    assert ws(kind, "sliced", ROUTING, ROUTING_WINDOWS, 512) == 20_992
+
+
 def test_full_rung_reach_and_smem():
     """The full rung's reach keeps the old kernels' numbers; ``walk_smem``
     reports the redesigned kernels': the dense walk's 16-row tile and
