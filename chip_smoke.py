@@ -112,8 +112,20 @@ Phases, each failing the run (non-zero exit) on its own error:
    forward with f32 weights on a [4, 256] prompt (rel < 2e-2); greedy
    decode at batch 128 (16 prompt + 32 tokens; gates: finite logits, 0
    wkv6 launches);
-13. print the ``kernels:`` line, the serving rates beside the card, the
-   per-kernel JSON line, and the contract's last line.
+13. rwkv6-3b training (``train_phase``): ``ops.wkv6`` under autograd
+   (the kernel forward, the plain scan recomputed for the backward)
+   against the plain scan under autograd at a full-width layer's
+   [320, 128, 64] and at T 37 (5e-4); one train step on the card
+   against the same step on the CPU, at ``reduced(rwkv6_3b)`` and at
+   the published width cut to one layer (loss and grad norm within
+   1e-4 relative); then ``launch/train.py``'s defaults at
+   the published width (batch 8 x seq 128, float32, AdamW, remat
+   "dots") for 5 steps through its ``setup`` and step (gates: finite
+   loss and grad norm, 64 wkv6 launches a step, params changed), with
+   step ms, tokens/s, peak memory, a CUPTI profile of one more step,
+   and the forward kernel's and the plain backward's device ms a call;
+14. print the ``kernels:`` line, the serving and training rates beside
+   the card, the per-kernel JSON line, and the contract's last line.
 
 It imports neither JAX nor the JAX package, and refuses to run without a
 CUDA device or outside a checkout of the repository.
@@ -121,6 +133,7 @@ CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import statistics
@@ -2027,6 +2040,266 @@ def rwkv_phase(dev, card):
     return counts, summary, row
 
 
+# rwkv6-3b training: launch/train.py's defaults at the published width
+TRAIN_ARGV = ("--arch", "rwkv6-3b", "--batch", "8", "--seq", "128",
+              "--dtype", "float32", "--accum", "1", "--device", "cuda")
+TRAIN_STEPS = 5                          # cut from the driver's --steps 100
+TRAIN_TOL = 1e-4                         # card step against the CPU's
+WKV6_GRAD_SHAPES = ((320, 128), (8, 37))  # a full-width layer; odd T
+# the card-against-CPU steps: (what, "reduced" or the published width's
+# layers, batch, seq)
+TRAIN_CHECKS = (("reduced (2 layers, d 64)", "reduced", 8, 128),
+                ("published width, 1 layer (d 2560, vocab 65536)", 1, 2, 64))
+
+
+def wkv6_grad_check(dev, BH: int, T: int, seed: int) -> dict:
+    """``ops.wkv6`` under autograd on the card (the ``_WKV6`` Function:
+    the kernel forward, one launch; the plain scan recomputed for the
+    backward) against autograd through ``ref.wkv6`` on the same inputs
+    and cotangent; forward and every gradient within ``wkv6_err``'s
+    5e-4. Returns the max errors."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda as kcuda, ops, ref
+    rng = np.random.default_rng(seed)
+    D = 64
+    a = [rng.normal(size=(BH, T, D)) for _ in range(3)] + \
+        [rng.uniform(0.05, 0.999, (BH, T, D)), rng.normal(size=(BH, D))]
+    xs = [torch.from_numpy(x.astype(np.float32)).to(dev).requires_grad_()
+          for x in a]
+    gy = torch.from_numpy(rng.normal(size=(BH, T, D)).astype(
+        np.float32)).to(dev)
+    kcuda.reset_launch_counts()
+    y = ops.wkv6(*xs)
+    torch.cuda.synchronize()
+    launched = kcuda.launch_counts()["wkv6"]
+    check(launched == 1, f"wkv6 under autograd [{BH}, {T}]: {launched} "
+          "launches, not 1")
+    check(y.grad_fn is not None and "WKV6" in type(y.grad_fn).__name__,
+          f"wkv6 under autograd [{BH}, {T}]: no _WKV6 node "
+          f"({type(y.grad_fn).__name__})")
+    got = torch.autograd.grad(y, xs, gy)
+    xr = [x.detach().clone().requires_grad_() for x in xs]
+    yr = ref.wkv6(*xr)
+    want = torch.autograd.grad(yr, xr, gy)
+    errs = {}
+    for name, g, w in zip(("y", "r", "k", "v", "w", "u"),
+                          (y.detach(),) + got, (yr.detach(),) + want):
+        err, ok = wkv6_err(g, w)
+        errs[name] = err
+        check(ok, f"wkv6 under autograd [{BH}, {T}]: d{name} max error "
+              f"{err}" if name != "y" else
+              f"wkv6 under autograd [{BH}, {T}]: forward max error {err}")
+    print(f"  wkv6 under autograd [{BH}, {T}, 64]: 1 launch, max |card - "
+          "plain|: " + ", ".join(f"{'' if n == 'y' else 'd'}{n} {e:.3e}"
+                                 for n, e in errs.items()) +
+          f" (tolerance {WKV6_TOL} + {WKV6_TOL}·|plain|): held")
+    return errs
+
+
+def train_phase(dev, card):
+    """Phase 13: rwkv6-3b training. (a) ``ops.wkv6`` under autograd
+    against the plain scan under autograd (``WKV6_GRAD_SHAPES``); (b) one
+    train step on the card against the same step on the CPU from the
+    same weights, at ``reduced(rwkv6_3b)`` and at the published width
+    cut to one layer (``TRAIN_CHECKS``; loss and grad norm within
+    ``TRAIN_TOL`` relative; 2 wkv6 launches a layer with remat
+    "dots"); (c) ``launch/train.py``'s defaults at the published width
+    (``setup`` and its step, float32, remat "dots"), ``TRAIN_STEPS``
+    steps: loss, grad norm, lr, ms, tokens/s, wkv6 launches a step,
+    peak memory; the forward kernel's and the plain backward's device
+    ms a call (CUPTI) at a layer's shape. Returns ``(launch counts of
+    one full-width step, the summary, the wkv6 row's training fields)``.
+    """
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import cuda as kcuda, ops, ref
+    from repro_torch.launch import train
+    from repro_torch.training import train_loop, tree
+    from repro_torch.training import optimizer as opt
+    t_all = time.time()
+    print(f"# rwkv6-3b training on {card}; {torch.cuda.memory_allocated() / 1e9:.3f} "
+          "GB allocated on entry")
+    print("# (a) wkv6 under autograd on the card against the plain scan "
+          "under autograd:")
+    for i, (BH, T) in enumerate(WKV6_GRAD_SHAPES):
+        wkv6_grad_check(dev, BH, T, 40 + i)
+
+    # (b) one step on the card against the same step on the CPU, from the
+    # same weights: at reduced(rwkv6_3b), and at the published width with
+    # the depth cut to one layer (the width's GEMMs, dk 64 and the vocab)
+    full = configs.get_config("rwkv6_3b")
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=0)
+    for what, cfg_r, B, T in TRAIN_CHECKS:
+        cfg_r = (configs.reduced(full) if cfg_r == "reduced" else
+                 dataclasses.replace(full, n_layers=cfg_r))
+        # drawn on the card (seconds, where the host takes ~30 s at the
+        # published width), copied to the host before the card's step
+        s_card = train_loop.init_train_state(
+            cfg_r, torch.Generator(dev).manual_seed(0), dtype=torch.float32,
+            opt_cfg=ocfg, device=dev)
+        s_cpu = tree.rebuild(s_card, lambda _, t: t.cpu())
+        batch = train.synthetic_batch(cfg_r, B, T, 0)
+        step_r = train_loop.make_train_step(cfg_r, opt_cfg=ocfg)
+        kcuda.reset_launch_counts()
+        s_card, m_card = step_r(s_card,
+                                {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        n_r = kcuda.launch_counts()["wkv6"]
+        s_cpu, m_cpu = step_r(s_cpu, batch)
+        rel = {k: abs(float(m_card[k]) - float(m_cpu[k])) /
+               max(abs(float(m_cpu[k])), 1e-30) for k in ("loss", "grad_norm")}
+        print(f"# (b) one step, {what} [{B}, {T}]: card loss "
+              f"{float(m_card['loss']):.6f} gnorm "
+              f"{float(m_card['grad_norm']):.6f}, CPU loss "
+              f"{float(m_cpu['loss']):.6f} gnorm "
+              f"{float(m_cpu['grad_norm']):.6f}; rel {rel['loss']:.3e} / "
+              f"{rel['grad_norm']:.3e} (tolerance {TRAIN_TOL}); {n_r} wkv6 "
+              "launches")
+        check(max(rel.values()) <= TRAIN_TOL,
+              f"train step, {what}: card against CPU rel {rel}")
+        check(n_r == 2 * cfg_r.n_layers, f"train step, {what}: {n_r} wkv6 "
+              f"launches, not 2 x {cfg_r.n_layers} (forward + remat)")
+        del s_card, s_cpu, m_card, m_cpu
+        torch.cuda.empty_cache()
+
+    # (c) the driver's defaults at the published width
+    argv = list(TRAIN_ARGV) + ["--steps", str(TRAIN_STEPS)]
+    print(f"# rwkv6-3b training CUT: {TRAIN_STEPS} steps instead of the "
+          "driver's --steps 100")
+    args = train.parse_args(argv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cfg, state, step_fn, start = train.setup(args)
+    torch.cuda.synchronize()
+    check(start == 0, f"training resumed at step {start}")
+    L = cfg.n_layers
+    n_par = sum(t.numel() for _, t in tree.leaves(state.params))
+    n_state = sum(t.numel() * t.element_size()
+                  for _, t in tree.leaves(state))
+    print(f"# rwkv6-3b training: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_par} parameters, "
+          f"--dtype {args.dtype}: params + m + v {n_state / 1e9:.3f} GB "
+          f"(+ {n_par * 4 / 1e9:.3f} GB of grads in a step), set up in "
+          f"{time.time() - t0:.1f}s")
+    probe = {k: state.params["layers"][k][0, :2].clone()
+             for k in ("wr", "wck", "u")}
+    probe["embed"] = state.params["embed"][:2].clone()
+    toks = args.batch * args.seq
+    rows = []
+    counts = None
+    for step in range(TRAIN_STEPS):
+        batch = train.synthetic_batch(cfg, args.batch, args.seq, step,
+                                      device=dev)
+        kcuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = kcuda.launch_counts()
+        counts = counts or c
+        gn, lr = float(metrics["grad_norm"]), float(metrics["lr"])
+        rows.append((loss, gn, lr, dt, c["wkv6"]))
+        print(f"  step {step}: loss {loss:.4f} gnorm {gn:.4f} lr {lr:.3e} "
+              f"{dt * 1e3:.1f} ms ({toks / dt:.0f} tok/s), wkv6 launches "
+              f"{c['wkv6']}, other kernels "
+              f"{sum(v for k, v in c.items() if k != 'wkv6')}")
+        check(np.isfinite(loss) and np.isfinite(gn),
+              f"training step {step}: loss {loss}, gnorm {gn}")
+        check(c["wkv6"] == 2 * L, f"training step {step}: {c['wkv6']} "
+              f"wkv6 launches, not 2 x {L} (forward + remat recompute)")
+        del batch, metrics
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    changed = {k: not torch.equal(v, (state.params["layers"][k][0, :2]
+                                      if k != "embed" else
+                                      state.params["embed"][:2]))
+               for k, v in probe.items()}
+    check(all(changed.values()), f"params unchanged after training: "
+          f"{changed}")
+    steady = [r[3] for r in rows[1:]]
+    ms = 1e3 * statistics.mean(steady)
+    print(f"# rwkv6-3b training on {card}: {TRAIN_STEPS} steps, batch "
+          f"{args.batch} x seq {args.seq}; steps 1-{TRAIN_STEPS - 1}: "
+          f"{ms:.1f} ms a step mean ({toks / (ms / 1e3):.0f} tokens/s), "
+          f"step 0 {rows[0][3] * 1e3:.1f} ms; peak memory "
+          f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated); loss "
+          f"{rows[0][0]:.4f} -> {rows[-1][0]:.4f}")
+
+    # one more step under CUPTI: device busy and the wkv6 kernels' share
+    batch = train.synthetic_batch(cfg, args.batch, args.seq, TRAIN_STEPS,
+                                  device=dev)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    ev = cuda_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    wk = cuda_events(prof, "wkv6_")
+    wk_sum = sum(e.time_range.elapsed_us() for e in wk) / 1e3
+    top: dict = {}
+    for e in ev:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    print(f"# profile of one more full-width step (CUPTI): wall "
+          f"{prof_wall:.1f} ms, device busy {busy:.1f} ms (idle "
+          f"{100 - 100 * busy / prof_wall:.1f}%), {len(ev)} device "
+          f"activities; wkv6 kernels {wk_sum:.2f} ms ({len(wk)} launches "
+          f"of its three kernels, {100 * wk_sum / max(busy, 1e-9):.1f}% of "
+          "busy)")
+    for name, t in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {t:9.3f} ms  {name[:100]}")
+    del state, metrics, batch, prof, ev, wk, probe
+    torch.cuda.empty_cache()
+
+    # a layer's scan alone: the kernel forward, the plain backward
+    rng = np.random.default_rng(9)
+    BH, T = args.batch * cfg.n_heads, args.seq
+    a = [rng.normal(size=(BH, T, 64)) for _ in range(3)] + \
+        [rng.uniform(0.05, 0.999, (BH, T, 64)), rng.normal(size=(BH, 64))]
+    xs = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in a]
+    gy = torch.from_numpy(rng.normal(size=(BH, T, 64)).astype(
+        np.float32)).to(dev)
+    launch, _ = ops.prepare("wkv6", *xs, ops.WKV6_CHUNK)
+    phases = kernel_means(profiled_events(launch, "wkv6_"))
+    fwd_ms = sum(phases.values()) if phases else event_ms(launch)
+
+    def backward():
+        # the body of ops._WKV6.backward: the plain scan under autograd
+        xr = [x.detach().requires_grad_() for x in xs]
+        return torch.autograd.grad(ref.wkv6(*xr), xr, gy)
+    bwd_ms, bsrc = device_ms(backward, reps=3)
+    bwd_wall = event_ms(backward, reps=3)
+    b, by = wkv6_bound(BH, T, 64, 64, ops.WKV6_CHUNK)
+    share = 100 * (2 * L * fwd_ms + L * bwd_ms) / max(busy, 1e-9)
+    print(f"# wkv6 at a layer's shape [{BH}, {T}, 64] on {card}: forward "
+          f"kernels {fwd_ms:.4f} ms a call (CUPTI: "
+          f"{wkv6_phase_text(phases)}; bound {b:.4f} ms, {by}), plain "
+          f"backward {bwd_ms:.3f} ms device a call ({bsrc}; {bwd_wall:.3f} "
+          f"ms between events); a step runs {2 * L} forwards and {L} "
+          f"backwards: {share:.1f}% of the profiled step's device busy")
+    summary = (f"{ms:.1f} ms a step, {toks / (ms / 1e3):.0f} tokens/s "
+               f"(batch {args.batch} x {args.seq}, {args.dtype}, remat "
+               f"dots), peak {peak / 1e9:.3f} GB, device busy {busy:.1f} "
+               f"ms of a profiled step's {prof_wall:.1f} (idle "
+               f"{100 - 100 * busy / prof_wall:.1f}%), wkv6 forward {fwd_ms:.4f} ms x {2 * L} + plain "
+               f"backward {bwd_ms:.3f} ms x {L} a step ({share:.1f}% of "
+               "busy)")
+    fields = {"train_launches_a_step": 2 * L, "train_forward_ms": fwd_ms,
+              "train_plain_backward_ms": bwd_ms}
+    del xs, gy, launch
+    torch.cuda.empty_cache()
+    print(f"# rwkv6-3b training phase: {time.time() - t_all:.1f}s")
+    return {"train step": counts}, summary, fields
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of repro_torch")
     p.add_argument("--points", type=int, default=POINTS,
@@ -2190,6 +2463,11 @@ def main(argv=None) -> int:
     rcounts, rwkv, wkv6_row = rwkv_phase(dev, card)
     counts.update(rcounts)
     rows.append(wkv6_row)
+
+    # -- rwkv6-3b training: wkv6 under autograd, launch/train.py's step
+    tcounts, rwkv["training"], train_fields = train_phase(dev, card)
+    counts.update(tcounts)
+    wkv6_row.update(train_fields)
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}

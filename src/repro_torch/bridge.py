@@ -12,7 +12,8 @@ across (host numpy, lists of ``bytes`` and ``frozenset``s), so a port
 The tests use both to run the two packages side by side.
 ``lm_params_from_reference`` / ``lm_cache_from_reference`` carry a
 reference LM parameter or decode-cache pytree (nested dicts) across,
-dtype for dtype.
+dtype for dtype, and ``train_state_from_reference`` a reference
+``TrainState`` (params and AdamW state).
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from repro_torch.core.device_tree import (
     AncestorTable, DeviceTree, Level, build_ancestor_table, build_walk_pack)
 from repro_torch.core.grid import Grid
 from repro_torch.core.hybrid import HybridTree
+from repro_torch.training.optimizer import OptState
+from repro_torch.training.train_loop import TrainState
 
 
 def _t(a, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -181,3 +184,15 @@ def lm_cache_from_reference(cache, device: str | torch.device = "cuda"
     """A reference decode cache (``make_cache``, or one a decode step
     returned) → the port's, on ``device``; ``pos`` stays a 0-d int32."""
     return _lm_tree(cache, resolve_device(device))
+
+
+def train_state_from_reference(state, device: str | torch.device = "cuda"
+                               ) -> TrainState:
+    """A reference ``train_loop.TrainState`` → the port's on ``device``:
+    params, ``opt.step`` (a 0-d int32), ``opt.m`` and ``opt.v`` with the
+    same names, shapes and dtypes."""
+    dev = resolve_device(device)
+    return TrainState(params=_lm_tree(state.params, dev),
+                      opt=OptState(step=_lm_tensor(state.opt.step, dev),
+                                   m=_lm_tree(state.opt.m, dev),
+                                   v=_lm_tree(state.opt.v, dev)))

@@ -952,6 +952,38 @@ def pad_time(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ext(r, 0.0), ext(k, 0.0), ext(v, 0.0), ext(w, 1.0)
 
 
+class _WKV6(torch.autograd.Function):
+    """The card's scan under autograd, as the reference's ``custom_vjp``
+    (``src/repro/kernels/ops.py:674-690``): the forward launches the
+    kernel and saves only its inputs; the backward recomputes the plain
+    scan (``ref.wkv6``) on them under autograd and differentiates that.
+    There is no backward kernel, as in the reference."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        ctx.save_for_backward(r, k, v, w, u)
+        T = r.shape[1]
+        r, k, v, w, u = (a.to(torch.float32) for a in (r, k, v, w, u))
+        launch, y = _prep_wkv6(*pad_time(r, k, v, w, chunk), u, chunk)
+        if y.numel():
+            launch()
+        return y[:, :T]
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        want = [i for i, need in enumerate(ctx.needs_input_grad[:5]) if need]
+        with torch.enable_grad():
+            xs = [a.detach().requires_grad_(i in want)
+                  for i, a in enumerate(saved)]
+            y = ref.wkv6(*xs)
+            got = torch.autograd.grad(y, [xs[i] for i in want], gy)
+        grads = [None] * 6
+        for i, g in zip(want, got):
+            grads[i] = g.to(saved[i].dtype)
+        return tuple(grads)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, chunk: int = WKV6_CHUNK) -> torch.Tensor:
     """RWKV-6 scan: r/k/w [BH,T,dk], v [BH,T,dv], u [BH,dk] → y [BH,T,dv]
@@ -960,12 +992,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     to a multiple of ``chunk``, with chunk-state scratch of BH·T/chunk·
     64·64 floats; on the CPU the sequential plain version. The card takes
     dk, dv <= 64 (padded to 64) and a chunk that is a multiple of 16, at
-    most 64; anything else raises ``ValueError``."""
+    most 64; anything else raises ``ValueError``.
+
+    Differentiable on both devices: on the CPU through the plain scan
+    itself, on the card through ``_WKV6`` (the kernel forward, the plain
+    scan recomputed for the backward); gradients come back in the
+    inputs' own dtypes."""
     if not _on_cuda(r, k, v, w, u):
         return ref.wkv6(r, k, v, w, u)
-    T = r.shape[1]
-    r, k, v, w, u = (a.to(torch.float32) for a in (r, k, v, w, u))
-    launch, y = _prep_wkv6(*pad_time(r, k, v, w, chunk), u, chunk)
-    if y.numel():
-        launch()
-    return y[:, :T]
+    return _WKV6.apply(r, k, v, w, u, chunk)

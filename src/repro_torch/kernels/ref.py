@@ -379,9 +379,14 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     BH, T, dk = r.shape
     dv = v.shape[-1]
     S = torch.zeros((BH, dk, dv), dtype=torch.float32, device=r.device)
-    y = torch.empty((BH, T, dv), dtype=torch.float32, device=r.device)
+    # the rows are stacked once at the end: under autograd, T writes into
+    # one [BH, T, dv] tensor would each copy its whole gradient back
+    ys = []
     for t in range(T):
         kv = k[:, t, :, None] * v[:, t, None, :]              # [BH, dk, dv]
-        y[:, t] = torch.einsum("nd,nde->ne", r[:, t], S + u[:, :, None] * kv)
+        ys.append(torch.einsum("nd,nde->ne", r[:, t],
+                               S + u[:, :, None] * kv))
         S = w[:, t, :, None] * S + kv
-    return y
+    if not ys:
+        return torch.zeros((BH, 0, dv), dtype=torch.float32, device=r.device)
+    return torch.stack(ys, dim=1)

@@ -5,14 +5,20 @@ family. Params are nested dicts of tensors with the reference's names,
 and the decoder blocks are stacked ``[L, ...]``, so carrying weights
 across from the reference is a tree map (``bridge.lm_params_from_
 reference``). The layer loop is a Python loop; serving runs it under
-``torch.no_grad()``. The other nine families (dense, moe, hybrid,
-encdec) raise ``NotImplementedError``: they are ROADMAP A13's rest.
+``torch.no_grad()``, training under autograd with each layer
+checkpointed by ``remat_policy`` (``loss_fn``). The other nine families
+(dense, moe, hybrid, encdec) raise ``NotImplementedError``: they are
+ROADMAP A13's rest.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    noop_context_fn)
 
 from repro_torch import resolve_device
 from repro_torch.models import ssm as ssmlib
@@ -106,7 +112,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s parameters (views into the ``[L, ...]`` stacks)."""
+    """Layer ``i``'s parameters: views into the ``[L, ...]`` stacks (or
+    the ``i``-th entry where a stack is held as a sequence of per-layer
+    tensors, as the train step holds it)."""
     return {k: v[i] for k, v in params["layers"].items()}
 
 
@@ -130,18 +138,74 @@ def _rwkv_block(cfg: ModelConfig, p: Params, x: torch.Tensor
     return x + cm
 
 
+# the matmuls "dots" keeps (jax.checkpoint_policies.checkpoint_dots): an
+# einsum reaches ATen as mm (no batch dims) or bmm
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(f: Callable, policy: Optional[str]) -> Callable:
+    """``f`` under activation checkpointing, as the reference's ``_remat``
+    (``src/repro/models/transformer.py:325-334``): ``"full"`` recomputes
+    everything in the backward, ``"dots"`` keeps the matmul outputs and
+    recomputes the rest, ``"none"`` / ``None`` keeps everything. Without
+    autograd (serving under ``torch.no_grad()``) ``f`` runs as it is."""
+    if policy == "none" or policy is None:
+        return f
+    if policy == "full":
+        context_fn = noop_context_fn
+    elif policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_dots)
+    else:
+        raise ValueError(f"unknown remat_policy {policy!r} (full, dots, "
+                         "none)")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return f(*args)
+        return checkpoint(f, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return run
+
+
 def forward(cfg: ModelConfig, params: Params,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Prefill forward → logits [B, S, vocab_padded].
+            batch: Dict[str, torch.Tensor], *,
+            remat_policy: Optional[str] = "dots") -> torch.Tensor:
+    """Training/prefill forward → logits [B, S, vocab_padded].
 
     ``batch``: {"tokens": [B,S]}. Each layer's time-mix runs one ``wkv6``
-    scan over the whole sequence.
+    scan over the whole sequence. Under autograd each layer is
+    checkpointed by ``remat_policy`` (``_remat``), which does not change
+    the values; under ``torch.no_grad()`` it costs nothing.
     """
     require_ssm(cfg)
     x = params["embed"][batch["tokens"]]
     for i in range(cfg.n_layers):
-        x = _rwkv_block(cfg, layer(params, i), x)
+        x = _remat(functools.partial(_rwkv_block, cfg, layer(params, i)),
+                   remat_policy)(x)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", x, head)
     return softcap(logits, cfg.logit_softcap)
+
+
+def loss_fn(cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor], *,
+            remat_policy: Optional[str] = "dots") -> torch.Tensor:
+    """Next-token cross entropy over the logical vocab, in float32, as a
+    mean over the positions ``batch["loss_mask"]`` weights (all of them
+    when it is absent)."""
+    logits = forward(cfg, params, batch, remat_policy=remat_policy)
+    labels = batch["labels"].long()
+    logits = logits[..., :cfg.vocab].to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(lse) if mask is None else mask.to(torch.float32)
+    return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                        min=1.0)

@@ -972,3 +972,76 @@ def test_rwkv_time_mix_full_width_layer(cuda):
     err = float((got.cpu().float() - want.float()).abs().max())
     assert bool(torch.isfinite(got).all())
     assert err <= 2e-2 * float(want.float().abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# wkv6 under autograd and the train step (the training slice): the forward
+# is the kernel (one launch), the backward the plain scan recomputed, as the
+# reference's custom_vjp; held to the scan under autograd at 5e-4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("BH,T,dtype", [(320, 128, "float32"),
+                                        (8, 37, "float32"),
+                                        (4, 50, "bfloat16")])
+def test_wkv6_autograd_function(cuda, BH, T, dtype):
+    args = [a.to(getattr(torch, dtype)).requires_grad_()
+            for a in _wkv6_args(cuda, BH + T, BH, T, 64, 64)]
+    gy = torch.randn(BH, T, 64, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(T))
+    y = _launched("wkv6", lambda: ops.wkv6(*args))
+    assert "WKV6" in type(y.grad_fn).__name__
+    got = torch.autograd.grad(y, args, gy)
+    xr = [a.detach().clone().requires_grad_() for a in args]
+    yr = ref.wkv6(*xr)
+    want = torch.autograd.grad(yr, xr, gy)
+    _wkv6_close(y.detach(), yr.detach())
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == a.dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=5e-4,
+                                   atol=5e-4)
+
+
+def test_wkv6_no_grad_takes_no_function(cuda):
+    args = [a.requires_grad_() for a in _wkv6_args(cuda, 3, 2, 40, 64, 64)]
+    with torch.no_grad():
+        y = _launched("wkv6", lambda: ops.wkv6(*args))
+    assert y.grad_fn is None
+
+
+def test_train_step_card_against_cpu(cuda):
+    """One ``reduced(rwkv6_3b)`` train step on the card against the same
+    step on the CPU from the same weights: loss and grad norm within
+    1e-4 relative; 2 wkv6 launches a layer (forward + remat "dots").
+    (The new params are not compared: AdamW's first step moves each by
+    about lr · sign(g), so a gradient near 0 moves its param by up to
+    2 · lr on a difference of float order.)"""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.training import optimizer as opt, train_loop, tree
+    cfg = configs.reduced(configs.get_config("rwkv6_3b"))
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=0)
+    s_cpu = train_loop.init_train_state(
+        cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+        opt_cfg=ocfg, device="cpu")
+    s_card = tree.rebuild(s_cpu, lambda _, t: t.to(cuda))
+    batch = train.synthetic_batch(cfg, 4, 96, 0)
+    step = train_loop.make_train_step(cfg, opt_cfg=ocfg)
+    kcuda.reset_launch_counts()
+    s_card, m_card = step(s_card, {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert kcuda.launch_counts()["wkv6"] == 2 * cfg.n_layers
+    s_cpu, m_cpu = step(s_cpu, batch)
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(m_card[k]), float(m_cpu[k]),
+                                   rtol=1e-4, err_msg=k)
+    assert all(a.device.type == "cuda" for _, a in tree.leaves(s_card))
+    assert int(s_card.opt.step) == int(s_cpu.opt.step) == 1
+
+
+def test_train_entry_points_run_on_the_card(cuda):
+    from repro_torch import configs
+    from repro_torch.training import train_loop, tree
+    cfg = configs.reduced(configs.get_config("rwkv6_3b"))
+    state = train_loop.init_train_state(cfg,
+                                        torch.Generator().manual_seed(0))
+    assert all(t.device.type == "cuda" for _, t in tree.leaves(state))

@@ -67,3 +67,18 @@ def test_package_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_training_modules_are_covered():
+    """The training slice's modules are among those both checks walk."""
+    mods = set(_modules())
+    for name in ("repro_torch.training", "repro_torch.training.checkpoint",
+                 "repro_torch.training.compression",
+                 "repro_torch.training.fault_tolerance",
+                 "repro_torch.training.optimizer",
+                 "repro_torch.training.train_loop",
+                 "repro_torch.training.tree", "repro_torch.launch.train"):
+        assert name in mods, name
+    srcs = {p.relative_to(PKG).as_posix() for p in _sources()
+            if PKG in p.parents}
+    assert {"training/optimizer.py", "launch/train.py"} <= srcs

@@ -304,3 +304,32 @@ def test_port_build_serves_exact_results():
     for i in range(wl.n_queries):
         assert set(ids[i][ids[i] >= 0]) == set(np.flatnonzero(inside[i]))
     assert res.used_ai.numpy().any() or not rep.cell_fit.any()
+
+
+def test_mlp_fit_quality_matches_reference():
+    """The MLP build's certified fit (ROADMAP C1): on the world above
+    (2,500 points, 150 queries, grid 4, hidden 16, 800 epochs) each
+    package fits from its own labels; the port's ``exact_fit`` is within
+    1/16 of the reference's and its per-cell flags differ in at most one
+    cell. Margin: the two train in float32 with other op orders (XLA
+    and ATen matmul sums), which moves a score by a few ulp; a query's
+    certificate flips only where one of its scores sits that close to
+    the threshold. The margin allows one cell of the 16 to flip its
+    flag, and 1/16 of the fit (9 of the 150 queries) to flip theirs. A
+    wider gap is a fault, not float order."""
+    pts = synth.tweets_like(2500, seed=0)
+    qs = synth.synth_queries(pts, 2e-4, 150, seed=1)
+    jtree = jdt.flatten(JRTree(max_entries=32).insert_all(pts))
+    _, want = jbuild.fit_airtree(jtree, jlabels.make_workload(jtree, qs),
+                                 kind="mlp", grid_sizes=(4,), mlp_hidden=16,
+                                 mlp_epochs=800)
+    tree = dt.flatten(RTree(max_entries=32).insert_all(pts), device=CPU)
+    _, got = build.fit_airtree(tree, labels.make_workload(tree, qs),
+                               kind="mlp", grid_sizes=(4,), mlp_hidden=16,
+                               mlp_epochs=800)
+    print(f"exact_fit: port {got.exact_fit:.4f}, reference "
+          f"{want.exact_fit:.4f}")
+    assert got.grid_size == want.grid_size == 4
+    assert abs(got.exact_fit - want.exact_fit) <= 1 / 16
+    assert int((np.asarray(got.cell_fit) != np.asarray(want.cell_fit))
+               .sum()) <= 1
