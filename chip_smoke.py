@@ -57,6 +57,19 @@ Phases, each failing the run (non-zero exit) on its own error:
    id-set mismatches on 512 sampled rows; then the wall split (serving,
    repack, refit) and a profile of one ``FreshServer.serve`` pass over
    the 4096 queries at a delta fill of 6,144;
+7b. the serving engine at one rank (``core.engine``) with the settings
+   of ``src/repro/launch/serve.py --distributed`` (``EngineConfig(max_visited=64)``:
+   max_pred 16, max_cells 4, topk union, guard on, delta slots 64; wide
+   x8): the range stream through ``make_two_tier_steps`` and the point
+   stream through ``make_point_serve_step`` (Hilbert order, batch 512,
+   launch counts reset just before and read just after 4 streams each,
+   one profiled stream), then the mixed stream through
+   ``EngineFreshServer`` with phase 7's inserts, policy and fit state;
+   gates: ``n_results`` equal row for row to the hybrid range and point
+   streams and to ``FreshServer``'s mixed stream, no ``r_truncated``
+   left, and per served batch exactly one ``traverse_compact``, two
+   ``leaf_refine``, one ``mlp_predict_compact`` and one ``forest_infer``
+   (plus one ``delta_probe`` in the mixed stream), no ``traverse_fused``;
 8. the forest bank (``--classifier forest``) at the deployment:
    ``fit_airtree(kind="forest")`` on the same tree and labelled workload,
    the range stream in Hilbert order through it (gates: 0 mismatches
@@ -1498,7 +1511,157 @@ def mixed_stream(idx, base_argv, inserts, dev):
               f"per wide batch, {merge:.3f} ms over the pass "
               f"({100 * merge / busy:.1f}% of busy; {rep.n_batches} narrow "
               f"+ {rep.wide_batches} wide batches)")
-    return counts, f"{mixed.n_queries / dt_s:.0f} queries/s"
+    return counts, f"{mixed.n_queries / dt_s:.0f} queries/s", mixed
+
+
+# the engine's launches a batch (``engine_phase``): the compact walk, the
+# R and AI refines, the MLP bank's prediction and the router
+ENGINE_LAUNCHES = {"traverse_compact": 1, "leaf_refine": 2,
+                   "mlp_predict_compact": 1, "forest_infer": 1}
+
+
+def engine_launch_check(label: str, counts: dict, batches: int,
+                        need: dict) -> str:
+    """Gate a stream's launch counts at ``need`` a batch (``batches``
+    batches, narrow and wide) and no dense walk; returns the per-batch
+    text."""
+    for name, per in need.items():
+        check(counts[name] == per * batches,
+              f"{label}: {name} launched {counts[name]} times over "
+              f"{batches} batches ({per} a batch expected)")
+    check(counts["traverse_fused"] == 0,
+          f"{label}: the engine built a dense [B, L] visited mask")
+    return ", ".join(f"{n} {c / batches:g}" for n, c in counts.items() if c)
+
+
+def engine_phase(idx, base_argv, inserts, dev, range_report, mixed_report):
+    """Phase 7b: the serving engine at one rank (``core.engine``) on the
+    deployment with ``src/repro/launch/serve.py --distributed``'s settings
+    (``EngineConfig(max_visited=64)``: max_pred 16, max_cells 4, topk
+    union, guard on, delta slots 64; wide x8). The range stream through
+    ``make_two_tier_steps`` + ``serve_workload`` (Hilbert, batch 512) and
+    the point stream through ``make_point_serve_step``, each with ``n_results``
+    equal row for row to the hybrid stream's and no ``r_truncated`` left;
+    the mixed stream through ``EngineFreshServer`` with ``mixed_stream``'s
+    inserts, policy and fit state, ``n_results`` equal to
+    ``FreshServer``'s. Returns ``(launch counts by path, rates)``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, monitor, schedule
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import serve
+    args = serve.parse_args(base_argv + ["--sort", "hilbert", "--reps", "3"])
+    cfg = engine.EngineConfig(max_visited=args.max_visited)
+    h = engine.pad_tree_for_sharding(idx.hybrid, 1)
+    narrow, wide = engine.make_two_tier_steps(
+        cfg, kind="mlp", wide_factor=args.wide_factor)
+    point = engine.make_point_serve_step(cfg, kind="mlp")
+    n_steps = [0]
+
+    def on_tree(step):
+        def fn(qb):
+            n_steps[0] += 1
+            return step(h, qb)
+        return fn
+    counts, rates = {}, {}
+
+    def stream(label, fn, q, wide_fn=None):
+        """Serve ``q`` through ``fn`` (and the wide tier): a warm-up and
+        ``args.reps`` timed streams (``serve.timed``) with launch counts
+        reset just before and read just after; then one profiled
+        stream."""
+        bbox = schedule.workload_bbox(q)
+
+        def run():
+            return schedule.serve_workload(
+                fn, q, batch=args.batch, sort="hilbert", bbox=bbox,
+                wide_fn=wide_fn, trunc_field="r_truncated", device=dev)
+        kcuda.reset_launch_counts()
+        n_steps[0] = 0
+        rep, dt_s = serve.timed(run, args.reps)
+        torch.cuda.synchronize()
+        counts[label] = kcuda.launch_counts()
+        per = engine_launch_check(label, counts[label], n_steps[0],
+                                  ENGINE_LAUNCHES)
+        check(not rep.stats.r_truncated.any(),
+              f"{label}: {int(rep.stats.r_truncated.sum())} rows still "
+              "r_truncated")
+        rates[label] = f"{rep.n_queries / dt_s:.0f} queries/s"
+        print(f"# {label}: {rep.n_queries} queries in {rep.n_batches} "
+              f"batches + {rep.wide_batches} wide ({rep.n_reserved} rows "
+              f"re-served), {rates[label]}, "
+              f"{100 * float(rep.stats.used_ai.mean()):.1f}% AI path, "
+              f"{float(rep.stats.leaf_accesses.mean()):.2f} leaf "
+              f"accesses/query; launches a batch: {per}")
+        profile_stream(label, run, rep.n_batches + rep.wide_batches)
+        return rep
+
+    rep = stream("engine range", on_tree(narrow), idx.workload.queries,
+                 on_tree(wide))
+    mism = int((rep.stats.n_results != range_report.stats.n_results).sum())
+    print(f"# engine range: {mism} / {rep.n_queries} n_results mismatches "
+          "vs the hybrid range stream")
+    check(mism == 0, f"engine range: {mism} n_results mismatches")
+
+    pargs = serve.parse_args(base_argv + ["--query-type", "point"])
+    q_pt, hybrid_point = serve.point_stream(idx.hybrid, idx.points, pargs)
+    want = hybrid_point().stats.n_results
+    rep = stream("engine point", on_tree(point), q_pt)
+    mism = int((rep.stats.n_results != want).sum())
+    print(f"# engine point: {mism} / {rep.n_queries} n_results mismatches "
+          "vs the hybrid point stream")
+    check(mism == 0, f"engine point: {mism} n_results mismatches")
+
+    margs = serve.parse_args(base_argv + [
+        "--sort", "hilbert", "--insert-every", "1", "--delta-cap",
+        str(DELTA_CAP), "--policy", "default", "--refit-chunk", "4",
+        "--repack-at", "0.75"])
+    server = monitor.EngineFreshServer(
+        idx.points, idx.hybrid, cfg, kind="mlp", delta_cap=margs.delta_cap,
+        wide_factor=margs.wide_factor, fit_state=idx.report.fit_state,
+        policy=monitor.DefaultPolicy(refit_chunk=margs.refit_chunk,
+                                     repack_at=margs.repack_at))
+    # the serve calls' own launches (repacks and refit chunks launch the
+    # labelling walk too)
+    calls, served = [0], dict.fromkeys(kcuda.KERNELS, 0)
+    for name in ("serve", "serve_wide"):
+        def call(q, fn=getattr(server, name)):
+            calls[0] += 1
+            before = kcuda.launch_counts()
+            out = fn(q)
+            for n, c in kcuda.launch_counts().items():
+                served[n] += c - before[n]
+            return out
+        setattr(server, name, call)
+    kcuda.reset_launch_counts()
+    t0 = time.time()
+    mixed = schedule.serve_mixed_workload(
+        server, idx.workload.queries, inserts, batch=margs.batch,
+        sort="hilbert", bbox=schedule.workload_bbox(idx.workload.queries),
+        insert_every=margs.insert_every, repack_every=margs.repack_every)
+    torch.cuda.synchronize()
+    dt_s = time.time() - t0
+    counts["engine mixed"] = kcuda.launch_counts()
+    per = engine_launch_check("engine mixed", served, calls[0],
+                              dict(ENGINE_LAUNCHES, delta_probe=1))
+    mism = int((mixed.stats.n_results
+                != mixed_report.stats.n_results).sum())
+    n_repacks = sum(d.repack for _, d in mixed.maintenance)
+    n_refit = sum(r.cells_refit for r in server.refits)
+    rates["engine mixed"] = f"{mixed.n_queries / dt_s:.0f} queries/s"
+    print(f"# engine mixed: {mixed.n_queries} queries / {mixed.n_inserts} "
+          f"inserts in {mixed.n_segments} segments ({calls[0]} steps), "
+          f"{n_repacks} repacks, {n_refit} cells refit, "
+          f"{int(mixed.stats.delta_hits.sum())} delta hits, "
+          f"{rates['engine mixed']} end to end; {mism} / {mixed.n_queries} "
+          f"n_results mismatches vs FreshServer; launches a batch: {per}")
+    check(mixed.n_inserts == INSERTS, f"{mixed.n_inserts} inserts staged")
+    check(n_repacks >= 1 and n_refit > 0,
+          "the engine's mixed stream never repacked or refit")
+    check(not mixed.stats.r_truncated.any(), "engine mixed: rows still "
+          "r_truncated")
+    check(mism == 0, f"engine mixed: {mism} n_results mismatches")
+    return counts, rates
 
 
 def forest_phase(idx, base_argv, dev, card):
@@ -2429,8 +2592,13 @@ def main(argv=None) -> int:
                   f"the {qt} stream built a dense [B, L] visited mask")
         rates[qt] = ", ".join(f"{v:.0f} {k}" for k, v in out.items())
 
-    counts["mixed"], rates["mixed"] = mixed_stream(idx, base_argv, inserts,
-                                                   dev)
+    counts["mixed"], rates["mixed"], mixed = mixed_stream(
+        idx, base_argv, inserts, dev)
+
+    # -- the serving engine at one rank: range, point and mixed streams
+    ecounts, erates = engine_phase(idx, base_argv, inserts, dev, report,
+                                   mixed)
+    counts.update(ecounts)
 
     # -- the forest bank, then the open loop, on the same index
     fcounts, rates["forest"], frow = forest_phase(idx, base_argv, dev, card)
@@ -2483,7 +2651,9 @@ def main(argv=None) -> int:
           f"accesses/query; {rates['range (arrival order)']} in arrival "
           f"order); knn {rates['knn']}; join {rates['join']}; point "
           f"{rates['point']}; mixed {rates['mixed']} with {INSERTS} "
-          f"inserts; forest bank {rates['forest']}; open loop at 1.5x "
+          f"inserts; engine at one rank: range {erates['engine range']}, "
+          f"point {erates['engine point']}, mixed {erates['engine mixed']}; "
+          f"forest bank {rates['forest']}; open loop at 1.5x "
           f"capacity: deadline formation {open_loop['deadline']}, full "
           f"{open_loop['full']} ({opts.points} points, batch {args.batch}); "
           f"on the {opts.large_points}-point index knn {large_rates['knn']}, "

@@ -25,7 +25,7 @@ and which cells to force-demote off / promote back onto the AI path.
 
 ``FreshServer`` owns the whole live state — hybrid tree, delta store,
 monitor — and is what the scheduler drives for a mixed read/write
-stream (the engine's ``EngineFreshServer`` is not ported yet):
+stream (``EngineFreshServer`` is its shape over the serving engine):
 ``serve``/``serve_wide`` answer batches (tree paths + delta probe,
 merged), ``insert`` stages points and bumps staleness, ``repack`` swaps
 in a fresh bulk-loaded tree between batches. Without a
@@ -530,3 +530,59 @@ class FreshServer:
 
     def stats(self) -> FreshnessStats:
         return self.monitor.stats(delta_fill=self.delta.n)
+
+
+class EngineFreshServer(FreshServer):
+    """The ``FreshServer`` shape over the serving engine: serves through
+    ``engine.make_two_tier_steps`` with the delta buffer as the step's
+    ``delta_xy`` argument, so staging inserts changes no step. The steps
+    serve a copy of the hybrid padded for the model axis
+    (``engine.pad_tree_for_sharding``, ``_repad``): a change of tree
+    (repack) or bank (refit chunk) re-pads it, a guard-only change
+    (inserts, policy demotions) splices just the padded ``cell_ok``.
+    Repacks, refit chunks and the policy loop are ``FreshServer``'s; the
+    wide tier's flag is ``ServeStats.r_truncated``.
+    """
+
+    trunc_field = "r_truncated"
+
+    def __init__(self, points: np.ndarray, hybrid: HybridTree, cfg, *,
+                 kind: str, n_model: int = 1, delta_cap: int = 4096,
+                 wide_factor: int = 8, fit_state=None,
+                 policy: Optional[MaintenancePolicy] = None):
+        from repro_torch.core import engine
+        self._axis = engine.model_axis(n_model)
+        self._h_p, self._padded_from = None, (None, None)
+        self._narrow, self._wide = engine.make_two_tier_steps(
+            cfg, kind=kind, wide_factor=wide_factor, axis=self._axis)
+        super().__init__(points, hybrid, delta_cap=delta_cap,
+                         max_visited=cfg.max_visited, delta_k=cfg.delta_k,
+                         wide_factor=wide_factor, fit_state=fit_state,
+                         policy=policy)
+
+    def _repad(self) -> None:
+        """Full re-pad of the served copy — needed when the tree or the
+        bank changed."""
+        from repro_torch.core import engine
+        self._h_p = engine.pad_tree_for_sharding(self.hybrid,
+                                                 self._axis.size)
+        self._padded_from = (self.hybrid.tree, self.hybrid.ait.bank)
+
+    def _sync_guard(self) -> None:
+        super()._sync_guard()
+        tree, bank = self._padded_from
+        if tree is not self.hybrid.tree or bank is not self.hybrid.ait.bank:
+            self._repad()
+            return
+        ok = self.hybrid.ait.cell_ok
+        pad = self._h_p.ait.cell_ok.shape[0] - ok.shape[0]
+        if pad:
+            ok = torch.cat([ok, torch.zeros((pad,), dtype=ok.dtype,
+                                            device=ok.device)])
+        self._h_p = dataclasses.replace(
+            self._h_p, ait=dataclasses.replace(self._h_p.ait, cell_ok=ok))
+
+    def _serve(self, q, widen: int):
+        q = torch.as_tensor(q, dtype=torch.float32, device=self.device)
+        step = self._narrow if widen == 1 else self._wide
+        return step(self._h_p, q, self.delta.xy)

@@ -79,6 +79,73 @@ def compact_mask_counted(mask: torch.Tensor, k: int
     return torch.where(valid, idx.to(torch.int32), 0), valid, count
 
 
+def compact_mask(mask: torch.Tensor, k: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, L] bool → (indices [B, k] i32, valid [B, k] bool):
+    ``compact_mask_counted`` without the count; overflow is reported by
+    ``overflowed``."""
+    idx, valid, _ = compact_mask_counted(mask, k)
+    return idx, valid
+
+
+def compact_candidates(ids: torch.Tensor, ok: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """First ``k`` **distinct** ids (ascending) among masked candidates.
+
+    ``ids`` [B, N] (≥ 0 where ``ok``), ``ok`` [B, N] bool → ``(slots
+    [B, k] i32, valid [B, k] bool, count [B] i32)`` with ``count`` the
+    distinct-id total. Equal to ``compact_mask_counted`` of the ids
+    scattered into a ``[B, L]`` mask — same slot order, zero-filled
+    invalid slots, same count — without that table, and without a
+    ``[B, N, N]`` pairwise one: each row is sorted with the masked ids
+    parked past every id, an id is kept where it differs from its left
+    neighbour, and the prefix count of the kept ids ranks them.
+    """
+    park = torch.iinfo(torch.int64).max
+    key = torch.where(ok, ids.to(torch.int64), park)
+    srt, _ = torch.sort(key, dim=-1)
+    first = torch.ones_like(ok)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    keep = first & (srt != park)
+    cs = torch.cumsum(keep.to(torch.int32), dim=-1, dtype=torch.int32)
+    count = cs[:, -1]
+    pos = torch.clamp(_searchsorted_rows(cs, k), max=ids.shape[1] - 1)
+    valid = torch.arange(k, dtype=torch.int32,
+                         device=ids.device)[None, :] < count[:, None]
+    # a negative id under ``ok`` lands as 0, as the reference's max-scatter
+    # onto a zero table leaves it
+    slots = torch.gather(srt, 1, pos).clamp(min=0)
+    return torch.where(valid, slots, 0).to(torch.int32), valid, count
+
+
+def _stable_topk(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest of each row of a 0/1 ``key``, ties to
+    the lower index (``lax.top_k``'s order): ``torch.topk`` of the
+    distinct keys ``key·N + (N − 1 − i)``."""
+    N = key.shape[-1]
+    rank = torch.arange(N - 1, -1, -1, dtype=torch.int64, device=key.device)
+    return torch.topk(key.to(torch.int64) * N + rank, k, dim=-1).indices
+
+
+def compact_mask_topk(mask: torch.Tensor, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``top_k``-based compaction the sort-free one replaced, kept as
+    its equivalence oracle: (indices [B, k] i32, valid [B, k] bool), the
+    slots past the row width padded with (0, False)."""
+    k_eff = min(k, mask.shape[-1])
+    idx = _stable_topk(mask, k_eff)
+    valid = torch.gather(mask.to(torch.bool), 1, idx)
+    pad = (0, k - k_eff)
+    return (torch.nn.functional.pad(idx, pad).to(torch.int32),
+            torch.nn.functional.pad(valid, pad))
+
+
+def overflowed(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """[B, L] → [B] bool: more than ``k`` set (a compaction would
+    truncate)."""
+    return torch.sum(mask.to(torch.int32), dim=-1, dtype=torch.int32) > k
+
+
 def refine_leaves(tree: DeviceTree, queries: torch.Tensor,
                   leaf_idx: torch.Tensor, valid: torch.Tensor
                   ) -> RefineResult:
@@ -152,6 +219,21 @@ def gather_result_ids(tree: DeviceTree, refine: RefineResult,
     safe = torch.clamp(pos, max=flat_ids.shape[-1] - 1)
     out = torch.where(valid, torch.gather(flat_ids, 1, safe), -1)
     return out.to(torch.int32), n_in > max_results
+
+
+def gather_result_ids_topk(tree: DeviceTree, refine: RefineResult,
+                           max_results: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``top_k``-based gather ``gather_result_ids`` replaced, kept as
+    its equivalence oracle (``max_results`` ≤ K·M)."""
+    li = torch.clamp(refine.leaf_idx.long(), 0, tree.n_leaves - 1)
+    B = li.shape[0]
+    flat_ids = tree.leaf_entry_ids[li].reshape(B, -1)
+    flat_in = refine.inside.reshape(B, -1)
+    slot = _stable_topk(flat_in, max_results)
+    take = torch.gather(flat_in, 1, slot)
+    out = torch.where(take, torch.gather(flat_ids, 1, slot), -1)
+    return out.to(torch.int32), overflowed(flat_in, max_results)
 
 
 def range_query(tree: DeviceTree, queries: torch.Tensor, *,

@@ -842,6 +842,63 @@ def test_fresh_server_cuda_equals_cpu(cuda):
     assert sum(d.repack for _, d in gm.maintenance) >= 1
 
 
+
+# the engine step's launches a step: the compact walk, the R and AI
+# refines, the router and the insert buffer's probe
+ENGINE_LAUNCHES = {"traverse_compact": 1, "leaf_refine": 2,
+                   "forest_infer": 1, "delta_probe": 1}
+
+
+@pytest.mark.parametrize("kind", ["knn", "mlp", "forest"])
+def test_engine_step_cuda_equals_cpu(cuda, kind):
+    """The engine's serve step (both score unions, a staged insert
+    buffer; bank built by the port on the CPU, carried to the card) on
+    the card against the same step on the CPU: every ``ServeStats``
+    field bit-equal (MLP rows with a cell-slot score within 1e-5 of the
+    threshold reported, not compared), and each step launched the
+    kernels of ``ENGINE_LAUNCHES`` that many times, plus
+    ``mlp_predict_compact`` once for the MLP bank's ``topk`` union."""
+    from repro_torch import bridge
+    from repro_torch.core import build, device_tree as dt, engine, labels
+    from repro_torch.core.aitree import cell_slot_probs
+    from repro_torch.core.grid import cells_of_queries
+    from repro_torch.core.rtree import RTree
+    from repro_torch.data import synth
+    pts = synth.tweets_like(3000, seed=0)
+    qs = synth.synth_queries(pts, 2e-3, 200, seed=1)
+    tree = dt.flatten(RTree(max_entries=32).insert_all(pts), device="cpu")
+    fits = {"knn": dict(grid_sizes=(6,)), "forest": dict(grid_sizes=(6,)),
+            "mlp": dict(grid_sizes=(4,), mlp_hidden=16, mlp_epochs=400)}
+    hyb, _ = build.fit_airtree(tree, labels.make_workload(tree, qs),
+                               kind=kind, max_pred=16, **fits[kind])
+    ghyb = bridge.hybrid_from_reference(hyb, cuda)
+    q = torch.from_numpy(qs)
+    xy = torch.full((512, 2), float("inf"))
+    xy[:300] = torch.from_numpy(synth.tweets_like(300, seed=5)).float()
+    keep = torch.ones(q.shape[0], dtype=torch.bool)
+    if kind == "mlp":
+        ids, _, _ = cells_of_queries(hyb.ait.grid, q, 4)
+        p = cell_slot_probs(hyb.ait, q, ids)
+        keep = ~((p - hyb.ait.threshold).abs() < 1e-5).any(dim=(1, 2))
+        print(f"near-threshold rows (reported, not compared): "
+              f"{torch.nonzero(~keep).flatten().tolist()}")
+    for union in ("topk", "pmax"):
+        step = engine.make_serve_step(
+            engine.EngineConfig(max_visited=4, score_union=union), kind=kind)
+        want = step(hyb, q, xy)
+        before = kcuda.launch_counts()
+        got = step(ghyb, q.to(cuda), xy.to(cuda))
+        torch.cuda.synchronize()
+        after = kcuda.launch_counts()
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu()[keep],
+                               getattr(want, f)[keep]), (union, f)
+        need = dict(ENGINE_LAUNCHES, mlp_predict_compact=int(
+            kind == "mlp" and union == "topk"))
+        assert {n: after[n] - before[n] for n in after} == \
+            {n: need.get(n, 0) for n in after}, union
+        assert got.r_truncated.any() and got.delta_hits.any()
+
 def test_walk_probe_runs(cuda, capsys):
     """``launch.walk_probe`` at a small size: every kernel it times is
     bit-equal to its plain version (it asserts so) and it reports each."""

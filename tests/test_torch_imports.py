@@ -82,3 +82,13 @@ def test_training_modules_are_covered():
     srcs = {p.relative_to(PKG).as_posix() for p in _sources()
             if PKG in p.parents}
     assert {"training/optimizer.py", "launch/train.py"} <= srcs
+
+
+def test_engine_modules_are_covered():
+    """The serving engine and the server over it are among the modules
+    both checks walk."""
+    mods = set(_modules())
+    assert {"repro_torch.core.engine", "repro_torch.core.monitor"} <= mods
+    srcs = {p.relative_to(PKG).as_posix() for p in _sources()
+            if PKG in p.parents}
+    assert "core/engine.py" in srcs
