@@ -137,7 +137,28 @@ Phases, each failing the run (non-zero exit) on its own error:
    loss and grad norm, 64 wkv6 launches a step, params changed), with
    step ms, tokens/s, peak memory, a CUPTI profile of one more step,
    and the forward kernel's and the plain backward's device ms a call;
-14. print the ``kernels:`` line, the serving and training rates beside
+14. the seven configs served with plain GQA attention (``lm_phase``),
+   each from ``init_params`` in bf16 (``torch.Generator`` seed 0, on the
+   card) at its published width: gemma2-9b (42 layers; 9.2B
+   parameters), h2o-danube3-4b, hymba-1.5b and whisper-small at their
+   published depth, llama3-405b, qwen2-72b and qwen2-vl-72b (``embeds``
+   input) cut to 2 layers (their bf16 weights do not fit one card).
+   Prefill ``forward`` at the longest listed shape whose reckoned peak
+   fits (gemma2 [1, 32768], else [1, 16384]; h2o [1, 32768]; hymba
+   [1, 2048]; whisper [8, 448] with ``frames [8, 1500, 768]``; the cut
+   ones [1, 4096]): tokens/s, device ms (CUPTI; hymba's per-token Mamba
+   loop is not profiled), peak memory. Greedy decode against 32768
+   slots (O(window) for swa) at the batch wanted (gemma2 8, h2o and
+   hymba 128, the rest 8), halved until the weights and two caches fit
+   (a step returns a new cache): 16 prompt + 32 tokens, tokens/s, a
+   profiled step's wall against device busy, the cache copy's share,
+   peak memory; whisper's cross cache filled from the encoder as the
+   reference's test helper does. Gates: no kernel of the thirteen
+   launched on any of these paths, finite logits, the logits' shape,
+   the cache's ``pos``; decode against forward in f32 at 2 layers (one
+   gemma2 pair) on a prompt 64 tokens past the window (the rings wrap),
+   rel < 2e-2, argmax equal;
+15. print the ``kernels:`` line, the serving and training rates beside
    the card, the per-kernel JSON line, and the contract's last line.
 
 It imports neither JAX nor the JAX package, and refuses to run without a
@@ -2157,7 +2178,11 @@ def rwkv_phase(dev, card):
     with torch.no_grad():
         kcuda.reset_launch_counts()
         t0 = time.perf_counter()
-        logits, cache = decode.prefill_via_decode(cfg, params, cache, prompt)
+        # token by token here, not through prefill_via_decode: a caller
+        # holding the first cache would keep a third cache alive
+        for t in range(LM_DECODE_PROMPT):
+            logits, cache = decode.decode_step(cfg, params, cache,
+                                               prompt[:, t:t + 1])
         torch.cuda.synchronize()
         t_prompt = time.perf_counter() - t0
         finite = bool(torch.isfinite(logits).all())
@@ -2463,6 +2488,390 @@ def train_phase(dev, card):
     return {"train step": counts}, summary, fields
 
 
+# the seven GQA families' serving paths (dense x5, hybrid, encdec)
+LM_SLOTS = 32768                         # decode_32k's context
+LM_DECODE_PROMPT, LM_DECODE_TOKENS = 16, 32
+LM_MARGIN = 6e9                          # bytes kept free for activations
+# (arch, layers: None for the published depth, prefill shapes to try in
+# order (the first whose reckoned peak fits runs), decode batch wanted)
+LM_SERVE = (
+    ("gemma2_9b", None, ((1, 32768), (1, 16384)), 8),
+    ("h2o_danube3_4b", None, ((1, 32768),), 128),
+    ("hymba_1_5b", None, ((1, 2048),), 128),
+    ("whisper_small", None, ((8, 448),), 8),
+    ("llama3_405b", 2, ((1, 4096),), 8),
+    ("qwen2_72b", 2, ((1, 4096),), 8),
+    ("qwen2_vl_72b", 2, ((1, 4096),), 8),
+)
+LM_CHECK_BATCH, LM_CHECK_PROMPT = 2, 64  # decode vs forward, f32, 2 layers
+
+
+def lm_config(arch: str, layers):
+    """The published config, its depth cut to ``layers`` when given
+    (whisper's encoder too; gemma2's pairs: ``layers`` is then 2, one
+    local/global pair)."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    if layers is None:
+        return cfg
+    cut = {"n_layers": layers}
+    if cfg.family == "encdec":
+        cut["n_enc_layers"] = layers
+    return dataclasses.replace(cfg, **cut)
+
+
+def lm_batch(cfg, B: int, S: int, gen, dev, dtype) -> dict:
+    """A prefill batch: tokens, or qwen2-vl's stubbed ``embeds``, plus
+    whisper's ``frames [B, enc_seq, d]``, drawn on the card."""
+    import torch
+    out = {}
+    if cfg.frontend == "vision":
+        out["embeds"] = torch.randn((B, S, cfg.d_model), generator=gen,
+                                    device=dev).to(dtype)
+    else:
+        out["tokens"] = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                      device=dev)
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                    generator=gen, device=dev).to(dtype)
+    return out
+
+
+def fill_cross(cfg, params, frames, cache):
+    """Whisper's serving preparation, the copy of the reference's test
+    helper ``encode_and_fill_cross`` (``tests/test_archs.py``): the
+    encoder on ``frames``, each decoder layer's cross k/v written into
+    ``cache["xk"]`` / ``cache["xv"]``."""
+    import torch
+    from repro_torch.models import transformer as tf
+    with torch.no_grad():
+        enc = tf.encode(cfg, params, frames)
+        for i in range(cfg.n_layers):
+            k, v = tf.cross_heads(cfg, tf.layer(params, i)["xattn"], enc)
+            cache["xk"][i].copy_(k)
+            cache["xv"][i].copy_(v)
+    return cache
+
+
+def device_items(prof) -> list:
+    """``(name, ms)`` of each device activity of a profile, read from
+    the profiler's raw (kineto) events: a forward of ~400K activities
+    takes ~1 s there where ``prof.events()`` (``cuda_events``), which
+    parses the whole trace, takes ~65 s."""
+    from torch.autograd import DeviceType
+    try:
+        raw = prof.profiler.kineto_results.events()
+    except AttributeError:
+        return [(e.name, e.time_range.elapsed_us() / 1e3)
+                for e in cuda_events(prof)]
+    return [(e.name(), e.duration_ns() / 1e6) for e in raw
+            if e.device_type() == DeviceType.CUDA]
+
+
+def cast_device_ms(prof, layer_shapes: list) -> float:
+    """Device ms of a CPU + CUDA profile charged to the float32 casts
+    (``aten::_to_copy``) of tensors shaped as ``layer_shapes``: one
+    layer of a decode cache (``decode_attention``'s reads of it)."""
+    return sum(e.device_time_total / 1e3 for e in prof.events()
+               if e.name == "aten::_to_copy" and e.input_shapes
+               and e.input_shapes[0] in layer_shapes)
+
+
+def top_items(items, n: int = 5) -> list:
+    by: dict = {}
+    for name, ms in items:
+        by[name] = by.get(name, 0.0) + ms
+    return sorted(by.items(), key=lambda kv: -kv[1])[:n]
+
+
+def no_launches(counts: dict, what: str) -> None:
+    check(not any(counts.values()), f"{what} launched kernels of "
+          f"kernels/csrc: { {n: c for n, c in counts.items() if c} }")
+
+
+def lm_prefill(cfg, params, shapes, gen, dev, card, label, profile=True):
+    """Prefill ``forward`` at the first of ``shapes`` whose reckoned
+    peak (weights, the [B, S, vocab] logits thrice: softcap's two
+    temporaries, then margin) fits the card; launch counts reset and
+    read around one forward (no kernel of the thirteen), finite logits;
+    tokens/s on the host clock over that forward (after a [1, 256]
+    warm-up), device ms of one more (CUPTI), peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.serving import kvcache
+    from repro_torch.models import transformer as tf
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    w = kvcache.cache_bytes(params)
+    for Bp, Sp in shapes:
+        peak = w + 3 * Bp * Sp * cfg.vocab_padded * 2 + LM_MARGIN
+        fits = peak <= total
+        print(f"# {label}: prefill [{Bp}, {Sp}] reckoned peak "
+              f"{peak / 1e9:.1f} GB of the card's {total / 1e9:.1f} GB: "
+              f"{'runs' if fits else 'does not fit'}")
+        if fits:
+            break
+    b = lm_batch(cfg, Bp, Sp, gen, dev, params["embed"].dtype)
+    with torch.no_grad():
+        def run():
+            return tf.forward(cfg, params, b)
+        # a short warm-up (kernel and cuBLAS set-up), then one counted
+        # and timed forward, then one profiled
+        tf.forward(cfg, params, lm_batch(cfg, 1, 256, gen, dev,
+                                         params["embed"].dtype))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kcuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kcuda.launch_counts()
+        peak_got = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        shape = tuple(logits.shape)
+        del logits
+        busy, ev = None, []
+        if profile:
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev = device_items(prof)
+            busy = sum(ms for _, ms in ev)
+            t_prof = time.perf_counter() - t0
+    del b
+    no_launches(counts, f"{label} prefill")
+    check(finite, f"{label} prefill: logits not finite")
+    check(shape == (Bp, Sp, cfg.vocab_padded), f"{label} prefill: {shape}")
+    dev_txt = (f"device {busy:.1f} ms a forward "
+               f"({100 * busy / (wall * 1e3):.1f}% of the wall; {len(ev)} "
+               f"device activities, read in {t_prof:.1f}s)"
+               if busy is not None else
+               "device time not profiled (the per-token Mamba loop makes "
+               f"~{Sp * cfg.n_layers * 8} launches a forward)")
+    text = (f"prefill [{Bp}, {Sp}]: {Bp * Sp / wall:.0f} tokens/s, "
+            f"{wall * 1e3:.1f} ms wall, "
+            f"{dev_txt}, peak {peak_got / 1e9:.3f} GB, 0 kernel launches")
+    print(f"# {label} on {card}: {text}")
+    for name, ms in top_items(ev):
+        print(f"    {ms:9.3f} ms  {name[:100]}")
+    return text, counts
+
+
+def lm_decode(cfg, params, B_want, gen, dev, card, label):
+    """Greedy decode against a ``LM_SLOTS``-slot cache (O(window) for
+    swa): the batch cut by halves from ``B_want`` until the weights, two
+    caches (a step returns a new cache and keeps the one it was given)
+    and a margin fit the card; ``LM_DECODE_PROMPT`` prompt tokens then
+    ``LM_DECODE_TOKENS`` greedy steps with launch counts reset and read
+    around them (none of the thirteen), finite logits, ``pos``; tokens/s,
+    a profiled step's wall against device busy, the cache copy's share
+    (the clones of the k/v stacks, timed alone) and the caches' float32
+    casts' (one more step profiled with its host ops), peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.serving import decode, kvcache
+    from repro_torch.training import tree
+    # the prefill's freed logits blocks stay reserved: give them back, or
+    # the caches' large blocks find no room
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    w = kvcache.cache_bytes(params)
+    one = kvcache.cache_bytes(kvcache.make_cache(cfg, 1, LM_SLOTS,
+                                                 device=dev)) - 4
+    B = B_want
+    while B > 1 and w + 2 * B * one + LM_MARGIN > total:
+        B //= 2
+    cut = "" if B == B_want else (
+        f"; CUT: batch {B}, not {B_want}: two caches of "
+        f"{B_want * one / 1e9:.1f} GB and {w / 1e9:.1f} GB of weights "
+        f"pass the card's {total / 1e9:.1f} GB")
+    print(f"# {label}: decode at batch {B} against {LM_SLOTS} slots, cache "
+          f"{B * one / 1e9:.3f} GB (reckoned peak "
+          f"{(w + 2 * B * one) / 1e9:.1f} GB with two caches){cut}")
+    cache = kvcache.make_cache(cfg, B, LM_SLOTS, device=dev)
+    if cfg.family == "encdec":
+        frames = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen,
+                             device=dev).to(params["embed"].dtype)
+        cache = fill_cross(cfg, params, frames, cache)
+        del frames
+    prompt = torch.randint(0, cfg.vocab, (B, LM_DECODE_PROMPT),
+                           generator=gen, device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kcuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        # token by token here, not through prefill_via_decode: a caller
+        # holding the first cache would keep a third cache alive
+        for t in range(LM_DECODE_PROMPT):
+            logits, cache = decode.decode_step(cfg, params, cache,
+                                               prompt[:, t:t + 1])
+        torch.cuda.synchronize()
+        t_prompt = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        t0 = time.perf_counter()
+        for _ in range(LM_DECODE_TOKENS):
+            tok = logits.argmax(-1, keepdim=True)
+            logits, cache = decode.decode_step(cfg, params, cache, tok)
+            finite &= bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        counts = kcuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        pos = int(cache["pos"])
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, nxt = decode.decode_step(cfg, params, cache, tok)
+            torch.cuda.synchronize()
+            step_wall = (time.perf_counter() - t0) * 1e3
+        del nxt
+        # one more step with the host ops recorded, to charge device time
+        # to the float32 casts of the caches in decode_attention
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA],
+                      record_shapes=True) as prof_ops:
+            _, nxt = decode.decode_step(cfg, params, cache, tok)
+            torch.cuda.synchronize()
+        del nxt
+        # the step's copy of its k/v stacks, alone between CUDA events
+        # (CUPTI records these multi-GB clones incompletely or not at
+        # all): the room it takes is the step's second cache
+        stacks = {k: cache[k] for k in ("k", "v", "local", "global")
+                  if k in cache}
+        copy = event_ms(lambda: [t.clone() for _, t in
+                                 tree.leaves(stacks)], reps=3)
+    no_launches(counts, f"{label} decode")
+    check(finite, f"{label} decode: logits not finite")
+    check(pos == LM_DECODE_PROMPT + LM_DECODE_TOKENS,
+          f"{label} decode: cache pos {pos}")
+    ev = device_items(prof)
+    busy = sum(ms for _, ms in ev)
+    copied = kvcache.cache_bytes(stacks)
+    casts = cast_device_ms(prof_ops, [list(t.shape[1:]) for _, t in
+                                      tree.leaves(stacks)])
+    text = (f"decode at batch {B}: {B * LM_DECODE_TOKENS / t_dec:.0f} "
+            f"tokens/s over {LM_DECODE_TOKENS} greedy steps "
+            f"({1e3 * t_dec / LM_DECODE_TOKENS:.2f} ms a step, host clock "
+            f"to a synchronize; the {LM_DECODE_PROMPT}-token prompt "
+            f"{t_prompt:.2f}s); a profiled step {step_wall:.2f} ms wall, "
+            f"device busy {busy:.3f} ms (idle "
+            f"{100 - 100 * busy / step_wall:.1f}%), the cache copy "
+            f"{copy:.3f} ms between events ({100 * copy / step_wall:.1f}% "
+            f"of the step's wall; {copied / 1e9:.3f} GB copied, bound "
+            f"{2 * copied / HBM_BYTES_PER_S * 1e3:.3f} ms), "
+            f"the caches' float32 casts {casts:.3f} ms "
+            f"({100 * casts / max(busy, 1e-9):.1f}% of busy), "
+            f"peak {peak / 1e9:.3f} GB, 0 kernel launches{cut}")
+    print(f"# {label} on {card}: {text}")
+    for name, ms in top_items(ev):
+        print(f"    {ms:9.3f} ms  {name[:100]}")
+    del cache, logits
+    return text, counts
+
+
+def lm_decode_check(arch, gen, dev, card) -> str:
+    """Decode against forward at the published width cut to 2 layers
+    (one local/global pair for gemma2), f32 weights (TF32 off): a prompt
+    of ``LM_CHECK_PROMPT`` tokens past the window for the windowed
+    configs (so the rings wrap), else ``LM_CHECK_PROMPT``, decoded token
+    by token against forward's last position (rel < 2e-2, argmax
+    equal)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import decode, kvcache
+    cfg = lm_config(arch, 2)
+    S = cfg.window + LM_CHECK_PROMPT if cfg.window else LM_CHECK_PROMPT
+    t0 = time.time()
+    p32 = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    toks = torch.randint(0, cfg.vocab, (LM_CHECK_BATCH, S), generator=gen,
+                         device=dev)
+    fb = {"tokens": toks}
+    if cfg.family == "encdec":
+        fb["frames"] = torch.randn((LM_CHECK_BATCH, cfg.enc_seq, cfg.d_model),
+                                   generator=gen, device=dev)
+    with torch.no_grad():
+        fwd = tf.forward(cfg, p32, fb)[:, -1].clone()
+        cache = kvcache.make_cache(cfg, LM_CHECK_BATCH, S,
+                                   dtype=torch.float32, device=dev)
+        if cfg.family == "encdec":
+            cache = fill_cross(cfg, p32, fb["frames"], cache)
+        last, cache = decode.prefill_via_decode(cfg, p32, cache, toks)
+    torch.cuda.synchronize()
+    rel = float((last - fwd).abs().max()) / (float(fwd.abs().max()) + 1e-9)
+    same = int((last.argmax(-1) == fwd.argmax(-1)).sum())
+    text = (f"decode vs forward (f32, 2 layers, [{LM_CHECK_BATCH}, {S}] "
+            f"prompt): rel {rel:.3e}, argmax equal on {same}/"
+            f"{LM_CHECK_BATCH} rows ({time.time() - t0:.1f}s)")
+    print(f"# {arch} on {card}: {text}")
+    check(rel < 2e-2, f"{arch}: decode diverges from forward: rel {rel}")
+    check(same == LM_CHECK_BATCH, f"{arch}: decode's argmax differs from "
+          f"forward's on {LM_CHECK_BATCH - same} rows")
+    del p32, cache, fb
+    torch.cuda.empty_cache()
+    return text
+
+
+def lm_phase(dev, card):
+    """Phase 14: the seven GQA families' serving paths on the card
+    (``LM_SERVE``): each model from ``init_params`` in bf16
+    (``torch.Generator`` seed 0, on the card) at its published width
+    (gemma2-9b, h2o-danube3-4b, hymba-1.5b and whisper-small at their
+    published depth; llama3-405b, qwen2-72b and qwen2-vl-72b cut to 2
+    layers: their bf16 weights do not fit one card), prefill
+    (``lm_prefill``) and greedy decode (``lm_decode``), then each
+    config's decode against its forward in f32 at 2 layers
+    (``lm_decode_check``). Returns ``(launch counts by path, the
+    summary)``."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import kvcache
+    from repro_torch.training import tree
+    t_all = time.time()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    counts, summary = {}, {}
+    for arch, layers, shapes, B_dec in LM_SERVE:
+        t0 = time.time()
+        cfg = lm_config(arch, layers)
+        params = tf.init_params(cfg,
+                                torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for _, t in tree.leaves(params))
+        depth = (f"{cfg.n_layers} layers" if layers is None else
+                 f"CUT to {layers} layers of {lm_config(arch, None).n_layers}")
+        print(f"# {arch} ({cfg.family}, {cfg.layer_pattern}"
+              f"{f', window {cfg.window}' if cfg.window else ''}): "
+              f"{depth}, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+              f"{cfg.n_kv_heads} KV of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab}; {n_par} parameters (config n_params "
+              f"{cfg.n_params()}), {kvcache.cache_bytes(params) / 1e9:.3f} "
+              f"GB bf16 on the card, drawn in {time.time() - t0:.1f}s")
+        t1 = time.time()
+        pre, counts[f"{arch} prefill"] = lm_prefill(
+            cfg, params, shapes, gen, dev, card, arch,
+            profile=cfg.family != "hybrid")
+        t_pre = time.time() - t1
+        t1 = time.time()
+        dec, counts[f"{arch} decode"] = lm_decode(cfg, params, B_dec, gen,
+                                                  dev, card, arch)
+        t_dec = time.time() - t1
+        del params
+        torch.cuda.empty_cache()
+        summary[arch] = f"{pre}; {dec}"
+        print(f"# {arch}: prefill {t_pre:.1f}s, decode {t_dec:.1f}s, "
+              f"{time.time() - t0:.1f}s in all")
+    for arch, *_ in LM_SERVE:
+        summary[arch] += "; " + lm_decode_check(arch, gen, dev, card)
+    print(f"# GQA serving phase: {time.time() - t_all:.1f}s")
+    return counts, summary
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="chip smoke of repro_torch")
     p.add_argument("--points", type=int, default=POINTS,
@@ -2637,6 +3046,10 @@ def main(argv=None) -> int:
     counts.update(tcounts)
     wkv6_row.update(train_fields)
 
+    # -- the seven GQA families' serving paths: prefill and decode
+    lcounts, gqa = lm_phase(dev, card)
+    counts.update(lcounts)
+
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -2660,6 +3073,8 @@ def main(argv=None) -> int:
           f"join {large_rates['join']}")
     print(f"# rwkv6-3b on {card}: " + "; ".join(
         f"{path} {v}" for path, v in rwkv.items()))
+    for arch, v in gqa.items():
+        print(f"# {arch} on {card}: {v}")
     print(f"# smoke finished in {time.time()-t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,11 @@ The port of the JAX package's ``launch/train.py`` on one device (the
 card unless ``--device cpu``): builds the train state, restores the
 newest checkpoint if there is one, installs the preemption handler, and
 train-loops with periodic atomic checkpoints and straggler heartbeats.
-Only the ssm family (rwkv6) has a model path in the port; another
-``--arch`` raises ``NotImplementedError``. ``--mesh`` other than one
-device is ROADMAP A11 (sharding is the multi-GPU slice) and raises.
+Only the ssm family (rwkv6) trains in the port; another ``--arch``
+raises ``NotImplementedError`` (the dense, hybrid and encdec families
+serve, but their training is ROADMAP A13c; the moe family is A13b).
+``--mesh`` other than one device is ROADMAP A11 (sharding is the
+multi-GPU slice) and raises.
 
     python -m repro_torch.launch.train --arch rwkv6-3b        # on the card
     python -m repro_torch.launch.train --arch rwkv6-3b --reduced \\
@@ -65,7 +67,11 @@ def setup(args: argparse.Namespace):
     cfg = configs.get_config(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    tf.require_ssm(cfg)
+    tf.require_ported(cfg)
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the port trains the ssm family "
+            "(rwkv6) only; training the other families is ROADMAP A13c")
     if args.mesh not in ("auto", "1x1"):
         d, m = (int(x) for x in args.mesh.split("x"))
         raise NotImplementedError(

@@ -2,7 +2,7 @@
 
 The port of the JAX package's ``models/layers.py``. Its sharding helpers
 (``with_sharding``, ``shard_batch``) are mesh code that does nothing off
-a mesh, and have no counterpart here yet.
+a mesh, and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -33,6 +33,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.to(torch.float32))).to(dt)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.to(torch.float32) + b.to(torch.float32)).to(dt)
 
 
 def act_fn(name: str):

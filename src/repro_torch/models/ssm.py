@@ -1,7 +1,7 @@
-"""State-space blocks: RWKV-6 (Finch).
+"""State-space blocks: RWKV-6 (Finch) and a Mamba head (for Hymba).
 
-The port of the RWKV half of the JAX package's ``models/ssm.py``, with
-its einsum orders and float32 casts. RWKV-6 is attention-free: time-mix
+The port of the JAX package's ``models/ssm.py``, with its einsum orders
+and float32 casts. RWKV-6 is attention-free: time-mix
 (the WKV linear-attention scan with data-dependent per-channel decay,
 ``kernels.ops.wkv6``) + channel-mix. The data-dependent token-shift
 interpolation uses the low-rank (LoRA) parameterization of the paper.
@@ -9,8 +9,13 @@ interpolation uses the low-rank (LoRA) parameterization of the paper.
 A sequence (S > 1) runs the chunked scan: on the card the CUDA kernel
 ``csrc/wkv6.cu``, on the CPU its plain version (the sequential scan). One
 token (S == 1, decode) is one recurrence step against the carried state,
-in plain tensor code, as in the reference. The Mamba head (Hymba) is not
-ported yet.
+in plain tensor code, as in the reference.
+
+The Mamba head is the selective-SSM recurrence (Δ, B, C data-dependent,
+diagonal A) with a depthwise causal conv front; Hymba runs it in
+parallel with sliding-window attention heads and mean-combines the
+normalized outputs. Its scan is one step a token in a Python loop, as
+the reference's ``lax.scan`` (plain code there too: no TPU kernel).
 """
 from __future__ import annotations
 
@@ -140,3 +145,61 @@ def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     kv = torch.einsum("bsf,fd->bsd", k, p["wcv"])
     out = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["wcr"])) * kv
     return out, x[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba head (Hymba's parallel SSM)
+# ---------------------------------------------------------------------------
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor   # [B, K-1, di] conv tail
+    h: torch.Tensor      # [B, di, N] SSM state
+
+
+def mamba_zero_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device: str | torch.device = "cuda") -> MambaState:
+    device = resolve_device(device)
+    di = cfg.d_model * cfg.ssm_expand
+    return MambaState(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype,
+                         device=device),
+        h=torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32,
+                      device=device),
+    )
+
+
+def mamba_head(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               state: MambaState) -> tuple[torch.Tensor, MambaState]:
+    """Selective SSM: x [B,S,d] → (y [B,S,di→d], new state)."""
+    B, S, d = x.shape
+    xz = torch.einsum("bsd,de->bse", x, p["w_in"])     # [B,S,2di]
+    xs, z = torch.chunk(xz, 2, dim=-1)
+    # depthwise causal conv (kernel K) with carried tail; the sum starts
+    # from 0 over the taps, as the reference's Python ``sum``
+    K = cfg.ssm_conv
+    ext = torch.cat([state.conv.to(xs.dtype), xs], dim=1)
+    conv = sum(ext[:, i:i + S] * p["conv_w"][i][None, None, :]
+               for i in range(K)) + p["conv_b"]
+    xs = F.silu(conv)
+    new_tail = ext[:, -(K - 1):] if K > 1 else state.conv
+
+    dt = F.softplus(torch.einsum("bse,er->bsr", xs, p["w_dt_a"])
+                    @ p["w_dt_b"] + p["dt_bias"])      # [B,S,di]
+    Bm = torch.einsum("bse,en->bsn", xs, p["w_B"])     # [B,S,N]
+    Cm = torch.einsum("bse,en->bsn", xs, p["w_C"])
+    A = -torch.exp(p["A_log"].to(torch.float32))       # [di,N]
+
+    f32 = torch.float32
+    xs32, dt32, B32, C32 = (a.to(f32) for a in (xs, dt, Bm, Cm))
+    h = state.h
+    ys = []
+    for t in range(S):
+        xt, dtt, Bt, Ct = xs32[:, t], dt32[:, t], B32[:, t], C32[:, t]
+        dA = torch.exp(dtt[:, :, None] * A[None])     # [B,di,N]
+        h = h * dA + (dtt * xt)[:, :, None] * Bt[:, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Ct))
+    y = torch.stack(ys, dim=1).to(x.dtype)             # [B,S,di]
+    y = y + xs * p["D"]
+    y = y * F.silu(z)
+    out = torch.einsum("bse,ed->bsd", y, p["w_out"])
+    return out, MambaState(conv=new_tail, h=h)

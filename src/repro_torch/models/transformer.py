@@ -1,14 +1,22 @@
-"""Model zoo core, the RWKV-6 (``ssm``) family: init and forward.
+"""Model zoo core: init and forward for the ported families.
 
-The port of the JAX package's ``models/transformer.py`` for the ssm
-family. Params are nested dicts of tensors with the reference's names,
-and the decoder blocks are stacked ``[L, ...]``, so carrying weights
-across from the reference is a tree map (``bridge.lm_params_from_
-reference``). The layer loop is a Python loop; serving runs it under
-``torch.no_grad()``, training under autograd with each layer
-checkpointed by ``remat_policy`` (``loss_fn``). The other nine families
-(dense, moe, hybrid, encdec) raise ``NotImplementedError``: they are
-ROADMAP A13's rest.
+The port of the JAX package's ``models/transformer.py``. Params are
+nested dicts of tensors with the reference's names, and the decoder
+blocks are stacked ``[L, ...]`` (gemma2: ``{"local", "global"}`` pair
+stacks ``[L/2, ...]``), so carrying weights across from the reference is
+a tree map (``bridge.lm_params_from_reference``). The layer loop is a
+Python loop; serving runs it under ``torch.no_grad()``, training under
+autograd with each layer checkpointed by ``remat_policy`` (``loss_fn``).
+
+Families:
+  dense   — llama3 / qwen2 / qwen2-vl / gemma2 / h2o-danube (GQA,
+            softcap, SWA, bias; gemma2's local/global alternation runs
+            over layer pairs)
+  ssm     — rwkv6 (attention-free; the ``wkv6`` CUDA kernel)
+  hybrid  — hymba (parallel SWA-attention + Mamba heads)
+  encdec  — whisper (stub audio frontend; cross-attention decoder)
+The moe family (deepseek-moe, deepseek-v2 with MLA) raises
+``NotImplementedError``: it is ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -21,23 +29,51 @@ from torch.utils.checkpoint import (
     noop_context_fn)
 
 from repro_torch import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssmlib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, rmsnorm, softcap
+from repro_torch.models.layers import act_fn, dense_init, rmsnorm, softcap
 
 Params = Dict[str, Any]
 
 
-def require_ssm(cfg: ModelConfig) -> None:
-    if cfg.family != "ssm":
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise for a family the port has no model path for yet."""
+    if cfg.family == "moe":
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the ssm family (rwkv6) is "
-            "ported; the other families are ROADMAP A13")
+            f"{cfg.name} ({cfg.family}): the moe family (MoE FFN, MLA) is "
+            "not ported; it is ROADMAP A13b")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+def _attn_params(cfg: ModelConfig, gen: torch.Generator, dtype,
+                 device) -> Params:
+    d = cfg.d_model
+
+    def init(shape):
+        return dense_init(gen, shape, dtype=dtype, device=device)
+
+    p: Params = {"wq": init((d, cfg.q_dim)), "wk": init((d, cfg.kv_dim)),
+                 "wv": init((d, cfg.kv_dim)), "wo": init((cfg.q_dim, d))}
+    if cfg.qkv_bias:
+        for nm, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                      ("bv", cfg.kv_dim)):
+            p[nm] = torch.zeros((n,), dtype=dtype, device=device)
+    return p
+
+
+def _mlp_params(cfg: ModelConfig, gen: torch.Generator, dtype,
+                device) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"wi": dense_init(gen, (d, f), dtype=dtype, device=device),
+         "wo2": dense_init(gen, (f, d), dtype=dtype, device=device)}
+    if cfg.act == "silu":  # gated (llama-style); whisper uses plain gelu
+        p["wg"] = dense_init(gen, (d, f), dtype=dtype, device=device)
+    return p
+
 
 def _rwkv_params(cfg: ModelConfig, gen: torch.Generator, dtype,
                  device) -> Params:
@@ -72,14 +108,64 @@ def _rwkv_params(cfg: ModelConfig, gen: torch.Generator, dtype,
     return p
 
 
+def _mamba_params(cfg: ModelConfig, gen: torch.Generator, dtype,
+                  device) -> Params:
+    d = cfg.d_model
+    di = d * cfg.ssm_expand
+    N = cfg.ssm_state
+
+    def init(shape):
+        return dense_init(gen, shape, dtype=dtype, device=device)
+
+    def full(shape, value, dt=dtype):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    return {
+        "w_in": init((d, 2 * di)),
+        "conv_w": init((cfg.ssm_conv, di)),
+        "conv_b": full((di,), 0.0),
+        "w_dt_a": init((di, 64)),
+        "w_dt_b": init((64, di)),
+        "dt_bias": full((di,), -4.6),                  # softplus ≈ 0.01
+        "w_B": init((di, N)),
+        "w_C": init((di, N)),
+        "A_log": torch.log(torch.arange(
+            1, N + 1, dtype=torch.float32, device=device)).expand(
+                di, N).contiguous(),
+        "D": full((di,), 1.0),
+        "w_out": init((di, d)),
+        "norm_attn": full((d,), 0.0),
+        "norm_ssm": full((d,), 0.0),
+        "beta_attn": full((), 1.0, torch.float32),
+        "beta_ssm": full((), 1.0, torch.float32),
+    }
+
+
 def _block_params(cfg: ModelConfig, gen: torch.Generator, dtype,
                   device) -> Params:
-    require_ssm(cfg)
+    require_ported(cfg)
     d = cfg.d_model
     p: Params = {"norm1": torch.zeros((d,), dtype=dtype, device=device),
                  "norm2": torch.zeros((d,), dtype=dtype, device=device)}
-    p.update(_rwkv_params(cfg, gen, dtype, device))
+    if cfg.family == "ssm":
+        p.update(_rwkv_params(cfg, gen, dtype, device))
+        return p
+    p["attn"] = _attn_params(cfg, gen, dtype, device)
+    if cfg.name.startswith("gemma2"):
+        p["norm_post1"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["norm_post2"] = torch.zeros((d,), dtype=dtype, device=device)
+    p["mlp"] = _mlp_params(cfg, gen, dtype, device)
+    if cfg.family == "hybrid":
+        p["ssm"] = _mamba_params(cfg, gen, dtype, device)
     return p
+
+
+def _stack(tree, L: int):
+    """Each tensor of ``tree`` repeated into a materialised ``[L, ...]``
+    stack (a copy, not a view: every layer holds its own weights)."""
+    if isinstance(tree, dict):
+        return {k: _stack(v, L) for k, v in tree.items()}
+    return tree[None].expand((L,) + tree.shape).contiguous()
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -90,37 +176,183 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     generator device; a generator on ``device`` avoids the copy.
 
     As the reference's ``stacked=True``, ONE layer is drawn and repeated
-    L times; the stack is materialised (``[L, ...]`` tensors, not views),
-    so the device holds every layer's weights as a trained model would.
+    L times (gemma2: one local and one global layer, each repeated L/2
+    times; whisper: one encoder and one decoder layer); the stacks are
+    materialised, so the device holds every layer's weights as a trained
+    model would. The names, shapes and dtypes are the reference's.
     """
-    require_ssm(cfg)
+    require_ported(cfg)
     device = resolve_device(device)
     d, Vp = cfg.d_model, cfg.vocab_padded
-    params: Params = {
-        "embed": dense_init(generator, (Vp, d), scale=0.02, dtype=dtype,
-                            device=device),
-        "final_norm": torch.zeros((d,), dtype=dtype, device=device),
-    }
+
+    def init(shape, scale=None):
+        return dense_init(generator, shape, scale=scale, dtype=dtype,
+                          device=device)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    params: Params = {"embed": init((Vp, d), 0.02),
+                      "final_norm": zeros((d,))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, (d, Vp), dtype=dtype,
-                                       device=device)
+        params["lm_head"] = init((d, Vp))
     one = _block_params(cfg, generator, dtype, device)
-    L = cfg.n_layers
-    params["layers"] = {k: v[None].expand((L,) + v.shape).contiguous()
-                        for k, v in one.items()}
+    if cfg.layer_pattern == "alt_local_global":
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: alt_local_global needs an even "
+                             f"n_layers, not {cfg.n_layers}")
+        pair = {"local": one,
+                "global": _block_params(cfg, generator, dtype, device)}
+        params["layers"] = _stack(pair, cfg.n_layers // 2)
+    else:
+        params["layers"] = _stack(one, cfg.n_layers)
+    if cfg.family == "encdec":
+        enc_one = {"norm1": zeros((d,)), "norm2": zeros((d,)),
+                   "attn": _attn_params(cfg, generator, dtype, device),
+                   "mlp": _mlp_params(cfg, generator, dtype, device)}
+        params["enc_layers"] = _stack(enc_one, cfg.n_enc_layers)
+        params["enc_norm"] = zeros((d,))
+        params["enc_pos"] = init((cfg.enc_seq, d), 0.02)
+        # decoder blocks additionally carry cross-attention
+        cross = {"norm_x": zeros((d,)),
+                 "xattn": _attn_params(cfg, generator, dtype, device)}
+        params["layers"].update(_stack(cross, cfg.n_layers))
+        # learned decoder positions sized for the largest decode cell
+        params["dec_pos"] = init((32768, d), 0.02)
     return params
 
 
-def layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into the ``[L, ...]`` stacks (or
-    the ``i``-th entry where a stack is held as a sequence of per-layer
-    tensors, as the train step holds it)."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def layer(params: Params, i: int, stack: str = "layers") -> Params:
+    """Layer ``i``'s parameters of ``params[stack]`` (``"layers"`` or
+    whisper's ``"enc_layers"``), nested dicts and all: views into the
+    ``[L, ...]`` stacks (or the ``i``-th entry where a stack is held as a
+    sequence of per-layer tensors, as the train step holds it). For
+    gemma2, layer ``i`` is the ``{"local", "global"}`` pair ``i``."""
+    return _index(params[stack], i)
+
+
+def depth(params: Params, stack: str = "layers") -> int:
+    """The number of entries of ``params[stack]``: layers, or gemma2's
+    local/global pairs."""
+    tree = params[stack]
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(tree)
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
+
+def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    a = act_fn(cfg.act)
+    h = torch.einsum("bsd,df->bsf", x, p["wi"])
+    if "wg" in p:
+        h = a(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
+    else:
+        h = a(h)
+    return torch.einsum("bsf,fd->bsd", h, p["wo2"])
+
+
+def _attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
+                *, causal: bool, window: int) -> torch.Tensor:
+    B, S, _ = x.shape
+    q, k, v = attn.gqa_qkv(cfg, p, x, positions)
+    o = attn.blockwise_attention(q, k, v, causal=causal, window=window,
+                                 cap=cfg.attn_softcap)
+    o = o.permute(0, 2, 1, 3).reshape(B, S, cfg.q_dim)
+    return torch.einsum("bsq,qd->bsd", o, p["wo"])
+
+
+def hybrid_mix(cfg: ModelConfig, p: Params, a: torch.Tensor,
+               m: torch.Tensor) -> torch.Tensor:
+    """Hymba's mean of the normalized attention and SSM outputs, scaled
+    by the float32 0-d ``beta_attn`` / ``beta_ssm``. The reference
+    computes it in float32 (JAX promotes a float32 array times a bf16
+    one to float32; PyTorch would keep a 0-d tensor's product in bf16),
+    so the normalized outputs are cast up before the betas meet them."""
+    return (p["beta_attn"] * rmsnorm(a, p["norm_attn"], cfg.norm_eps).to(
+        torch.float32) + p["beta_ssm"] * rmsnorm(
+            m, p["norm_ssm"], cfg.norm_eps).to(torch.float32)) * 0.5
+
+
+def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
+                 *, window: int) -> torch.Tensor:
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    a = _attn_block(cfg, p["attn"], h, positions, causal=True, window=window)
+    if cfg.family == "hybrid":
+        m, _ = ssmlib.mamba_head(
+            cfg, p["ssm"], h,
+            ssmlib.mamba_zero_state(cfg, x.shape[0], device=x.device))
+        a = hybrid_mix(cfg, p["ssm"], a, m).to(x.dtype)
+    if "norm_post1" in p:
+        a = rmsnorm(a, p["norm_post1"], cfg.norm_eps)
+    x = x + a
+    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    f = _mlp(cfg, p["mlp"], h)
+    if "norm_post2" in p:
+        f = rmsnorm(f, p["norm_post2"], cfg.norm_eps)
+    return x + f
+
+
+def _pair_block(cfg: ModelConfig, positions, p: Params, x: torch.Tensor
+                ) -> torch.Tensor:
+    """gemma2's layer pair: a sliding-window layer, then a global one."""
+    x = _dense_block(cfg, p["local"], x, positions, window=cfg.window)
+    return _dense_block(cfg, p["global"], x, positions, window=0)
+
+
+def _enc_block(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder layer: bidirectional attention at positions 0
+    (RoPE is the identity there; the encoder's positions are the learned
+    ``enc_pos``), then the MLP."""
+    B, S, _ = h.shape
+    hn = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    q, k, v = attn.gqa_qkv(cfg, p["attn"], hn, torch.zeros(
+        (B, S), dtype=torch.int32, device=h.device))
+    o = attn.blockwise_attention(q, k, v, causal=False, window=0)
+    o = o.permute(0, 2, 1, 3).reshape(B, S, cfg.q_dim)
+    h = h + torch.einsum("bsq,qd->bsd", o, p["attn"]["wo"])
+    hn = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    return h + _mlp(cfg, p["mlp"], hn)
+
+
+def cross_heads(cfg: ModelConfig, p: Params, enc_out: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's k and v ``[B, Hkv, enc_seq, Dh]`` of one
+    decoder layer: ``wk`` / ``wv`` without the biases, no RoPE."""
+    B = enc_out.shape[0]
+
+    def heads(w):
+        return torch.einsum("bsd,dk->bsk", enc_out, w).reshape(
+            B, -1, cfg.n_kv_heads, cfg.d_head).permute(0, 2, 1, 3)
+    return heads(p["wk"]), heads(p["wv"])
+
+
+def _encdec_block(cfg: ModelConfig, enc_out: torch.Tensor, positions,
+                  p: Params, h: torch.Tensor) -> torch.Tensor:
+    """Whisper's decoder layer: self-attention → cross-attention → MLP
+    (the decode path in ``serving/decode.py`` mirrors this order)."""
+    B, S, _ = h.shape
+    hn = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    h = h + _attn_block(cfg, p["attn"], hn, positions, causal=True,
+                        window=0)
+    hn = rmsnorm(h, p["norm_x"], cfg.norm_eps)
+    q = torch.einsum("bsd,dq->bsq", hn, p["xattn"]["wq"]).reshape(
+        B, S, cfg.n_heads, cfg.d_head).permute(0, 2, 1, 3)
+    k, v = cross_heads(cfg, p["xattn"], enc_out)
+    o = attn.blockwise_attention(q, k, v, causal=False, window=0)
+    o = o.permute(0, 2, 1, 3).reshape(B, S, cfg.q_dim)
+    h = h + torch.einsum("bsq,qd->bsd", o, p["xattn"]["wo"])
+    hn = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    return h + _mlp(cfg, p["mlp"], hn)
+
 
 def _rwkv_block(cfg: ModelConfig, p: Params, x: torch.Tensor
                 ) -> torch.Tensor:
@@ -173,21 +405,67 @@ def _remat(f: Callable, policy: Optional[str]) -> Callable:
     return run
 
 
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
+           remat_policy: Optional[str] = None) -> torch.Tensor:
+    """Whisper's encoder: ``frames [B, enc_seq, d]`` (the stubbed
+    frontend's output) → the normed encoder states, in the params'
+    dtype."""
+    f = frames.to(params["embed"].dtype)
+    e = f + params["enc_pos"][None, :f.shape[1]]
+    e = _run_layers(params, "enc_layers", functools.partial(_enc_block, cfg),
+                    e, remat_policy)
+    return rmsnorm(e, params["enc_norm"], cfg.norm_eps)
+
+
+def _run_layers(params: Params, stack: str, block: Callable,
+                x: torch.Tensor, remat_policy: Optional[str]
+                ) -> torch.Tensor:
+    """``x`` through ``block(layer_params, x)`` for each entry of
+    ``params[stack]``, each under ``_remat``."""
+    for i in range(depth(params, stack)):
+        x = _remat(functools.partial(block, layer(params, i, stack)),
+                   remat_policy)(x)
+    return x
+
+
 def forward(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor], *,
             remat_policy: Optional[str] = "dots") -> torch.Tensor:
     """Training/prefill forward → logits [B, S, vocab_padded].
 
-    ``batch``: {"tokens": [B,S]}. Each layer's time-mix runs one ``wkv6``
-    scan over the whole sequence. Under autograd each layer is
+    ``batch``: {"tokens": [B,S]} or {"embeds": [B,S,d]} (qwen2-vl's
+    modality stub), plus {"frames": [B,enc_seq,d]} for the enc-dec
+    family. rwkv6's time-mix runs one ``wkv6`` scan a layer over the
+    whole sequence; the other families launch no kernel of
+    ``kernels/csrc`` (their attention and Mamba scan are plain PyTorch,
+    as the reference's are plain JAX). Under autograd each layer is
     checkpointed by ``remat_policy`` (``_remat``), which does not change
     the values; under ``torch.no_grad()`` it costs nothing.
     """
-    require_ssm(cfg)
-    x = params["embed"][batch["tokens"]]
-    for i in range(cfg.n_layers):
-        x = _remat(functools.partial(_rwkv_block, cfg, layer(params, i)),
-                   remat_policy)(x)
+    require_ported(cfg)
+    if "embeds" in batch:
+        x = batch["embeds"].to(params["embed"].dtype)
+        B, S, _ = x.shape
+    else:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = params["embed"][tokens]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    window = cfg.window if cfg.layer_pattern == "swa" else 0
+
+    if cfg.family == "ssm":
+        block = functools.partial(_rwkv_block, cfg)
+    elif cfg.layer_pattern == "alt_local_global":
+        block = functools.partial(_pair_block, cfg, positions)
+    elif cfg.family == "encdec":
+        enc_out = encode(cfg, params, batch["frames"],
+                         remat_policy=remat_policy)
+        x = x + params["dec_pos"][None, :S]
+        block = functools.partial(_encdec_block, cfg, enc_out, positions)
+    else:
+        def block(p, h):
+            return _dense_block(cfg, p, h, positions, window=window)
+    x = _run_layers(params, "layers", block, x, remat_policy)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", x, head)

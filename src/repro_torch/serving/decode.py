@@ -1,11 +1,21 @@
-"""Single-token decode steps, the rwkv6 family.
+"""Single-token decode steps for the ported families.
 
-The port of the JAX package's ``serving/decode.py`` for the ssm family:
-one new token against the carried cache, layer by layer in a Python loop
-(the reference scans the stacked layers). Each layer's time-mix is one
-recurrence step in plain tensor code (S == 1), so decode launches no
-``wkv6`` kernel. Like the reference, a step returns a new cache and
-leaves the one it was given as it was.
+The port of the JAX package's ``serving/decode.py``: one new token
+against the carried cache, layer by layer in a Python loop (the
+reference scans the stacked layers). rwkv6's time-mix is one recurrence
+step in plain tensor code (S == 1), so decode launches no ``wkv6``
+kernel; attention decodes densely over the cache, float32 scores with
+the not-yet-written tail masked, and a windowed layer writes its ring
+slot ``pos % S``.
+
+Like the reference, a step returns a new cache and leaves the one it
+was given as it was: each k/v stack is copied once at the top of the
+step and the new token's slot written into the copy, so two caches are
+alive during a step. The pieces a step does not change (whisper's cross
+``xk`` / ``xv``) are shared between the two. ``pos`` stays a 0-d tensor
+on the cache's device: no step waits for the host.
+
+The moe family (``_mla_decode``, ``_moe1``) is ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -14,19 +24,75 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models import ssm as ssmlib
+from repro_torch.models.attention import decode_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rmsnorm, softcap
-from repro_torch.models.transformer import layer, require_ssm
+from repro_torch.models.layers import act_fn, rmsnorm, softcap
+from repro_torch.models.rope import apply_rope
+from repro_torch.models.transformer import (depth, hybrid_mix, layer,
+                                            require_ported)
 from repro_torch.serving.kvcache import Cache
 
 Params = Dict[str, Any]
 
 
-def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-    """tokens [B, 1] → (logits [B, vocab_padded], new cache)."""
-    require_ssm(cfg)
-    x = params["embed"][tokens[:, 0]]
+def _proj_heads(x, w, b, n, d):
+    y = torch.einsum("bd,de->be", x, w)
+    if b is not None:
+        y = y + b
+    return y.reshape(x.shape[0], n, d)
+
+
+def _gqa_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """h [B, d] → attn_out [B, d]. Writes the token's k/v into ``kc`` /
+    ``vc`` ([B, Hkv, S, Dh], a layer of the step's new cache) at slot
+    ``pos % S`` if windowed (a ring), else ``min(pos, S - 1)``, then
+    attends over the first ``min(pos + 1, S)`` slots."""
+    B = h.shape[0]
+    posv = pos.expand(B)
+    q = _proj_heads(h, p["wq"], p.get("bq"), cfg.n_heads, cfg.d_head)
+    k = _proj_heads(h, p["wk"], p.get("bk"), cfg.n_kv_heads, cfg.d_head)
+    v = _proj_heads(h, p["wv"], p.get("bv"), cfg.n_kv_heads, cfg.d_head)
+    q = apply_rope(q[:, None], posv[:, None], cfg.rope_theta)[:, 0]
+    k = apply_rope(k[:, None], posv[:, None], cfg.rope_theta)[:, 0]
+    S = kc.shape[2]
+    slot = (pos % S) if window else torch.clamp(pos, max=S - 1)
+    slot = slot.long().reshape(1)
+    kc.index_copy_(2, slot, k[:, :, None].to(kc.dtype))
+    vc.index_copy_(2, slot, v[:, :, None].to(vc.dtype))
+    length = torch.clamp(pos + 1, max=S).expand(B)
+    o = decode_attention(q.reshape(B, cfg.n_heads, 1, cfg.d_head), kc, vc,
+                         length, cap=cfg.attn_softcap)
+    o = o.reshape(B, cfg.q_dim)
+    return torch.einsum("bq,qd->bd", o, p["wo"])
+
+
+def _mlp1(cfg, p, x):
+    a = act_fn(cfg.act)
+    hdn = torch.einsum("bd,df->bf", x, p["wi"])
+    if "wg" in p:
+        hdn = a(torch.einsum("bd,df->bf", x, p["wg"])) * hdn
+    else:
+        hdn = a(hdn)
+    return torch.einsum("bf,fd->bd", hdn, p["wo2"])
+
+
+def _post_norm(cfg, p, name, a):
+    return rmsnorm(a, p[name], cfg.norm_eps) if name in p else a
+
+
+def _half_pair(cfg, p, h, kc, vc, pos, window):
+    """One half of gemma2's layer pair: attention (post-normed), then
+    the MLP (post-normed), each with its residual."""
+    hn = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    a = _gqa_decode(cfg, p["attn"], hn, kc, vc, pos, window)
+    h = h + _post_norm(cfg, p, "norm_post1", a)
+    hn = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    return h + _post_norm(cfg, p, "norm_post2", _mlp1(cfg, p["mlp"], hn))
+
+
+def _rwkv_layers(cfg, params, cache, x):
     tm_s, cm_s, wkv_s = [], [], []
     for i in range(cfg.n_layers):
         lp = layer(params, i)
@@ -41,9 +107,76 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         tm_s.append(tm_new.to(tms.dtype))
         cm_s.append(cm_new.to(cms.dtype))
         wkv_s.append(wkv_new)
-    new_cache = dict(cache, pos=cache["pos"] + 1,
-                     tm_shift=torch.stack(tm_s), cm_shift=torch.stack(cm_s),
-                     wkv=torch.stack(wkv_s))
+    return x, dict(tm_shift=torch.stack(tm_s), cm_shift=torch.stack(cm_s),
+                   wkv=torch.stack(wkv_s))
+
+
+def _pair_layers(cfg, params, cache, x, pos):
+    new = {half: {n: cache[half][n].clone() for n in ("k", "v")}
+           for half in ("local", "global")}
+    for i in range(depth(params)):
+        lp = layer(params, i)
+        x = _half_pair(cfg, lp["local"], x, new["local"]["k"][i],
+                       new["local"]["v"][i], pos, cfg.window)
+        x = _half_pair(cfg, lp["global"], x, new["global"]["k"][i],
+                       new["global"]["v"][i], pos, 0)
+    return x, new
+
+
+def _dense_layers(cfg, params, cache, x, pos):
+    """The dense, hybrid and encdec layers: self-attention (with hymba's
+    parallel Mamba head, or whisper's cross-attention after it), then
+    the MLP."""
+    B = x.shape[0]
+    window = cfg.window if cfg.layer_pattern == "swa" else 0
+    new = {"k": cache["k"].clone(), "v": cache["v"].clone()}
+    conv_s, ssm_s = [], []
+    for i in range(cfg.n_layers):
+        lp = layer(params, i)
+        hn = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        a = _gqa_decode(cfg, lp["attn"], hn, new["k"][i], new["v"][i], pos,
+                        window)
+        if cfg.family == "hybrid":
+            st = ssmlib.MambaState(conv=cache["conv"][i],
+                                   h=cache["ssm_h"][i])
+            m, st = ssmlib.mamba_head(cfg, lp["ssm"], hn[:, None], st)
+            a = hybrid_mix(cfg, lp["ssm"], a, m[:, 0]).to(x.dtype)
+            conv_s.append(st.conv)
+            ssm_s.append(st.h)
+        if cfg.family == "encdec":
+            xk, xv = cache["xk"][i], cache["xv"][i]
+            hn2 = rmsnorm(x + a, lp["norm_x"], cfg.norm_eps)
+            q = _proj_heads(hn2, lp["xattn"]["wq"], None, cfg.n_heads,
+                            cfg.d_head)
+            o = decode_attention(
+                q[:, :, None, :], xk, xv,
+                torch.full((B,), xk.shape[2], dtype=torch.int32,
+                           device=x.device))
+            a = a + torch.einsum("bq,qd->bd", o.reshape(B, cfg.q_dim),
+                                 lp["xattn"]["wo"])
+        x = x + a
+        hn = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        x = x + _mlp1(cfg, lp["mlp"], hn)
+    if cfg.family == "hybrid":
+        new.update(conv=torch.stack(conv_s), ssm_h=torch.stack(ssm_s))
+    return x, new
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """tokens [B, 1] → (logits [B, vocab_padded], new cache)."""
+    require_ported(cfg)
+    pos = cache["pos"]
+    x = params["embed"][tokens[:, 0]]
+    if cfg.family == "encdec":
+        x = x + params["dec_pos"].index_select(0, pos.long().reshape(1))
+    if cfg.family == "ssm":
+        x, new = _rwkv_layers(cfg, params, cache, x)
+    elif cfg.layer_pattern == "alt_local_global":
+        x, new = _pair_layers(cfg, params, cache, x, pos)
+    else:
+        x, new = _dense_layers(cfg, params, cache, x, pos)
+    new_cache = dict(cache, pos=pos + 1, **new)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = softcap(torch.einsum("bd,dv->bv", x, head), cfg.logit_softcap)

@@ -1,10 +1,23 @@
-"""Decode-time caches, the rwkv6 family.
+"""Decode-time caches for the ported families.
 
-The port of the JAX package's ``serving/kvcache.py`` for the ssm family:
-token shifts ``tm_shift`` / ``cm_shift`` ``[L, B, d]`` and the wkv state
-``[L, B, H, dk, dk]`` in float32 — O(1) in the context length. ``pos``
-is a scalar step counter shared across the batch. The other families'
-caches are ROADMAP A13.
+The port of the JAX package's ``serving/kvcache.py``. Layouts (leading
+L = layers, stacked as the params are):
+
+  dense         k,v: [L, B, Hkv, S_cache, Dh]   (S_cache = seq_len, or the
+                window size for SWA layers — an O(window) cache)
+  gemma2        two stacks: local (window) + global (full) caches, each
+                [L/2, ...]
+  rwkv6         tm/cm shifts [L, B, d] + wkv state [L, B, H, dk, dk] — O(1)
+  hymba         window k/v + mamba conv tail [L, B, K-1, di] and state
+                ``ssm_h`` [L, B, di, N] (float32) — O(window + d·N)
+  whisper       decoder self k/v + the encoder's cross k/v ``xk`` / ``xv``
+                [L, B, Hkv, enc_seq, Dh], filled by the caller from the
+                encoder's output (the reference's tests do the same)
+
+``pos`` is a scalar step counter shared across the batch (standard batched
+decode); ring-buffer writes use ``pos % window`` for windowed layers. The
+moe family's caches (MLA's latent, the dense-layer stack) are ROADMAP
+A13b.
 """
 from __future__ import annotations
 
@@ -14,9 +27,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import require_ssm
+from repro_torch.models.transformer import require_ported
 
 Cache = Dict[str, Any]
+
+
+def _kv(L, B, Hkv, S, Dh, dtype, device) -> Cache:
+    return {"k": torch.zeros((L, B, Hkv, S, Dh), dtype=dtype, device=device),
+            "v": torch.zeros((L, B, Hkv, S, Dh), dtype=dtype, device=device)}
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -24,21 +42,44 @@ def make_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: str | torch.device = "cuda") -> Cache:
     """Allocate the decode cache for a maximum context of ``seq_len``
     (which the rwkv6 cache does not depend on)."""
-    require_ssm(cfg)
+    require_ported(cfg)
     device = resolve_device(device)
     L, B = cfg.n_layers, batch
-    dk = cfg.d_model // cfg.n_heads
-    return {
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
-        "tm_shift": torch.zeros((L, B, cfg.d_model), dtype=dtype,
-                                device=device),
-        "cm_shift": torch.zeros((L, B, cfg.d_model), dtype=dtype,
-                                device=device),
-        "wkv": torch.zeros((L, B, cfg.n_heads, dk, dk), dtype=torch.float32,
-                           device=device),
-    }
+    H, Dh = cfg.n_kv_heads, cfg.d_head
+    cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.family == "ssm":
+        dk = cfg.d_model // cfg.n_heads
+        cache.update(tm_shift=zeros((L, B, cfg.d_model)),
+                     cm_shift=zeros((L, B, cfg.d_model)),
+                     wkv=zeros((L, B, cfg.n_heads, dk, dk), torch.float32))
+        return cache
+    if cfg.layer_pattern == "alt_local_global":
+        half = L // 2
+        cache["local"] = _kv(half, B, H, min(cfg.window, seq_len), Dh,
+                             dtype, device)
+        cache["global"] = _kv(half, B, H, seq_len, Dh, dtype, device)
+        return cache
+    S_eff = min(cfg.window, seq_len) if cfg.layer_pattern == "swa" \
+        else seq_len
+    cache.update(_kv(L, B, H, S_eff, Dh, dtype, device))
+    if cfg.family == "hybrid":
+        di = cfg.d_model * cfg.ssm_expand
+        cache.update(conv=zeros((L, B, cfg.ssm_conv - 1, di)),
+                     ssm_h=zeros((L, B, di, cfg.ssm_state), torch.float32))
+    if cfg.family == "encdec":
+        cache.update(xk=zeros((L, B, H, cfg.enc_seq, Dh)),
+                     xv=zeros((L, B, H, cfg.enc_seq, Dh)))
+    return cache
 
 
-def cache_bytes(cache: Cache) -> int:
-    return sum(t.numel() * t.element_size() for t in cache.values()
-               if torch.is_tensor(t))
+def cache_bytes(cache) -> int:
+    """Bytes of every tensor in ``cache``, nested dicts included."""
+    if isinstance(cache, dict):
+        return sum(cache_bytes(v) for v in cache.values())
+    if torch.is_tensor(cache):
+        return cache.numel() * cache.element_size()
+    return 0

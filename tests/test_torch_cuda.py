@@ -1102,3 +1102,71 @@ def test_train_entry_points_run_on_the_card(cuda):
     state = train_loop.init_train_state(cfg,
                                         torch.Generator().manual_seed(0))
     assert all(t.device.type == "cuda" for _, t in tree.leaves(state))
+
+
+# ---------------------------------------------------------------------------
+# the GQA serving families (dense ×5, hymba, whisper): forward and decode on
+# the card against the same port code on the CPU, float32, within 1e-4 of
+# the largest magnitude; no kernel of kernels/csrc launches on these paths
+# ---------------------------------------------------------------------------
+
+def _lm_world(arch, dev):
+    from helpers.torch_lm import batch, perturbed
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    cfg = configs.reduced(configs.get_config(arch))
+    p = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                       dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(len(arch))
+    p = perturbed(p, rng)
+
+    def tree(t, d):
+        return {k: tree(v, d) for k, v in t.items()} if isinstance(t, dict) \
+            else torch.from_numpy(t).to(d)
+    nb = batch(cfg, rng, 2, 24)
+    return cfg, tree(p, "cpu"), tree(p, dev), nb
+
+
+def _lm_close(got, want, tol=1e-4):
+    got, want = got.cpu().float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["llama3_405b", "qwen2_72b", "qwen2_vl_72b",
+                                  "gemma2_9b", "h2o_danube3_4b",
+                                  "hymba_1_5b", "whisper_small"])
+def test_lm_serving_card_against_cpu(cuda, arch):
+    """``forward`` over 24 tokens (past the reduced window of 16) and
+    ``prefill_via_decode`` of the same tokens (the rings wrap), every
+    cache field and ``pos``, on the card against the CPU."""
+    from helpers.torch_lm import fill_cross
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import decode, kvcache
+    from repro_torch.training import tree
+    cfg, p_cpu, p_card, nb = _lm_world(arch, cuda)
+    outs = {}
+    kcuda.reset_launch_counts()
+    for where, p in (("cpu", p_cpu), ("card", p_card)):
+        dev = "cpu" if where == "cpu" else cuda
+        b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()
+             if k != "labels"}
+        with torch.no_grad():
+            logits = tf.forward(cfg, p, b)
+            cache = kvcache.make_cache(cfg, 2, 32, dtype=torch.float32,
+                                       device=dev)
+            if cfg.family == "encdec":
+                cache = fill_cross(cfg, p, b["frames"], cache)
+            last, cache = decode.prefill_via_decode(cfg, p, cache,
+                                                    b["tokens"])
+        outs[where] = (logits, last, cache)
+    torch.cuda.synchronize()
+    assert not any(kcuda.launch_counts().values())
+    (lc, dc, cc), (lg, dg, cg) = outs["cpu"], outs["card"]
+    _lm_close(lg, lc)
+    _lm_close(dg, dc)
+    assert int(cg["pos"]) == int(cc["pos"]) == 24
+    want = dict(tree.leaves(cc))
+    for name, t in tree.leaves(cg):
+        assert t.device.type == "cuda", name
+        _lm_close(t, want[name])

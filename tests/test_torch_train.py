@@ -169,7 +169,7 @@ def test_remat_policy_names(world):
     with pytest.raises(ValueError, match="remat_policy"):
         tf.loss_fn(world["cfg"], world["tp"], batch, remat_policy="dotz")
     with pytest.raises(NotImplementedError, match="A13"):
-        tf.loss_fn(configs.reduced(configs.get_config("llama3_405b")),
+        tf.loss_fn(configs.reduced(configs.get_config("deepseek_moe_16b")),
                    world["tp"], batch)
 
 
