@@ -157,7 +157,16 @@ Phases, each failing the run (non-zero exit) on its own error:
    launched on any of these paths, finite logits, the logits' shape,
    the cache's ``pos``; decode against forward in f32 at 2 layers (one
    gemma2 pair) on a prompt 64 tokens past the window (the rings wrap),
-   rel < 2e-2, argmax equal;
+   rel < 2e-2, argmax equal; then the moe pair the same way:
+   deepseek-moe-16b at its published depth (28 layers: 1 dense, 27 MoE;
+   16.4B parameters; prefill [1, 32768] if its reckoned peak, the MoE
+   block's transients included, fits, else [1, 16384]; decode wanted at
+   batch 8, cut to what fits) and deepseek-v2-236b at its published
+   width cut to 2 layers (1 dense, 1 MoE; MLA's latent cache; prefill
+   [1, 4096], decode at batch 8), each MoE layer's dropped pairs and
+   expert load at the published capacity factor 1.25, decode's
+   per-row gather of the experts' weights timed alone beside the step,
+   decode against forward at the drop-free capacity;
 15. print the ``kernels:`` line, the serving and training rates beside
    the card, the per-kernel JSON line, and the contract's last line.
 
@@ -167,6 +176,7 @@ CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -2488,7 +2498,8 @@ def train_phase(dev, card):
     return {"train step": counts}, summary, fields
 
 
-# the seven GQA families' serving paths (dense x5, hybrid, encdec)
+# the LM serving paths: the seven GQA families (dense x5, hybrid,
+# encdec), then the moe pair
 LM_SLOTS = 32768                         # decode_32k's context
 LM_DECODE_PROMPT, LM_DECODE_TOKENS = 16, 32
 LM_MARGIN = 6e9                          # bytes kept free for activations
@@ -2502,6 +2513,8 @@ LM_SERVE = (
     ("llama3_405b", 2, ((1, 4096),), 8),
     ("qwen2_72b", 2, ((1, 4096),), 8),
     ("qwen2_vl_72b", 2, ((1, 4096),), 8),
+    ("deepseek_moe_16b", None, ((1, 32768), (1, 16384)), 8),
+    ("deepseek_v2_236b", 2, ((1, 4096),), 8),
 )
 LM_CHECK_BATCH, LM_CHECK_PROMPT = 2, 64  # decode vs forward, f32, 2 layers
 
@@ -2518,6 +2531,59 @@ def lm_config(arch: str, layers):
     if cfg.family == "encdec":
         cut["n_enc_layers"] = layers
     return dataclasses.replace(cfg, **cut)
+
+
+def moe_transient_bytes(cfg, T: int) -> int:
+    """Bytes (bf16) of ``moe_ffn``'s transients at ``T`` tokens and the
+    published capacity: the ``[E, C, d]`` buffer and expert outputs, the
+    three ``[E, C, de]`` hidden tensors, the three ``[T·k, d]`` row
+    gathers (the dispatch's, the combine's and its weighted copy)."""
+    from repro_torch.models import moe
+    if cfg.family != "moe":
+        return 0
+    C = moe.capacity(cfg, T)
+    E, k, d, de = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_expert
+    return 2 * (2 * E * C * d + 3 * E * C * de + 3 * T * k * d)
+
+
+@contextlib.contextmanager
+def moe_stats_recorded():
+    """A list that collects the ``MoEStats`` of every ``moe_ffn`` call in
+    the block (``transformer.forward`` drops them, as the reference's
+    does): ``moe.moe_ffn`` is wrapped for the block's duration."""
+    from repro_torch.models import moe
+    plain, stats = moe.moe_ffn, []
+
+    def recorded(*args, **kwargs):
+        out, st = plain(*args, **kwargs)
+        stats.append(st)
+        return out, st
+    moe.moe_ffn = recorded
+    try:
+        yield stats
+    finally:
+        moe.moe_ffn = plain
+
+
+def moe_stats_text(cfg, stats, T: int) -> str:
+    """Each MoE layer's dropped pairs and expert load (printed), and
+    their spread over the layers (returned)."""
+    from repro_torch.models import moe
+    C = moe.capacity(cfg, T)
+    dropped, ratios = [], []
+    for i, st in enumerate(stats):
+        load = st.load.to("cpu")
+        dropped.append(100 * float(st.dropped_frac))
+        mean = T * cfg.top_k / cfg.n_experts
+        ratios.append(int(load.max()) / mean)
+        print(f"    MoE layer {cfg.n_dense_layers + i}: dropped "
+              f"{dropped[-1]:.3f}% of {T * cfg.top_k} pairs, load max "
+              f"{int(load.max())} / mean {mean:.1f} / min "
+              f"{int(load.min())} (capacity C {C})")
+    return (f"{len(stats)} MoE layers at capacity factor "
+            f"{cfg.capacity_factor} (C {C}): dropped {min(dropped):.3f}–"
+            f"{max(dropped):.3f}% of pairs, max load {min(ratios):.2f}–"
+            f"{max(ratios):.2f}x the mean")
 
 
 def lm_batch(cfg, B: int, S: int, gen, dev, dtype) -> dict:
@@ -2592,10 +2658,11 @@ def no_launches(counts: dict, what: str) -> None:
 def lm_prefill(cfg, params, shapes, gen, dev, card, label, profile=True):
     """Prefill ``forward`` at the first of ``shapes`` whose reckoned
     peak (weights, the [B, S, vocab] logits thrice: softcap's two
-    temporaries, then margin) fits the card; launch counts reset and
-    read around one forward (no kernel of the thirteen), finite logits;
-    tokens/s on the host clock over that forward (after a [1, 256]
-    warm-up), device ms of one more (CUPTI), peak memory."""
+    temporaries, the MoE block's transients, then margin) fits the card;
+    launch counts reset and read around one forward (no kernel of the
+    thirteen), finite logits, each MoE layer's stats; tokens/s on the
+    host clock over that forward (after a [1, 256] warm-up), device ms
+    of one more (CUPTI), peak memory."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.kernels import cuda as kcuda
@@ -2605,7 +2672,8 @@ def lm_prefill(cfg, params, shapes, gen, dev, card, label, profile=True):
     total = torch.cuda.get_device_properties(0).total_memory
     w = kvcache.cache_bytes(params)
     for Bp, Sp in shapes:
-        peak = w + 3 * Bp * Sp * cfg.vocab_padded * 2 + LM_MARGIN
+        peak = (w + 3 * Bp * Sp * cfg.vocab_padded * 2
+                + moe_transient_bytes(cfg, Bp * Sp) + LM_MARGIN)
         fits = peak <= total
         print(f"# {label}: prefill [{Bp}, {Sp}] reckoned peak "
               f"{peak / 1e9:.1f} GB of the card's {total / 1e9:.1f} GB: "
@@ -2623,10 +2691,11 @@ def lm_prefill(cfg, params, shapes, gen, dev, card, label, profile=True):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kcuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        logits = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with moe_stats_recorded() as stats:
+            t0 = time.perf_counter()
+            logits = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         counts = kcuda.launch_counts()
         peak_got = torch.cuda.max_memory_allocated()
         finite = bool(torch.isfinite(logits).all())
@@ -2654,6 +2723,10 @@ def lm_prefill(cfg, params, shapes, gen, dev, card, label, profile=True):
     text = (f"prefill [{Bp}, {Sp}]: {Bp * Sp / wall:.0f} tokens/s, "
             f"{wall * 1e3:.1f} ms wall, "
             f"{dev_txt}, peak {peak_got / 1e9:.3f} GB, 0 kernel launches")
+    if cfg.family == "moe":
+        check(len(stats) == cfg.n_layers - cfg.n_dense_layers,
+              f"{label} prefill: {len(stats)} MoE layers ran")
+        text += "; " + moe_stats_text(cfg, stats, Bp * Sp)
     print(f"# {label} on {card}: {text}")
     for name, ms in top_items(ev):
         print(f"    {ms:9.3f} ms  {name[:100]}")
@@ -2669,7 +2742,9 @@ def lm_decode(cfg, params, B_want, gen, dev, card, label):
     around them (none of the thirteen), finite logits, ``pos``; tokens/s,
     a profiled step's wall against device busy, the cache copy's share
     (the clones of the k/v stacks, timed alone) and the caches' float32
-    casts' (one more step profiled with its host ops), peak memory."""
+    casts' (one more step profiled with its host ops), the moe family's
+    per-row gather of its experts' weights (one MoE layer's, timed
+    alone), peak memory."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.kernels import cuda as kcuda
@@ -2740,10 +2815,12 @@ def lm_decode(cfg, params, B_want, gen, dev, card, label):
         # the step's copy of its k/v stacks, alone between CUDA events
         # (CUPTI records these multi-GB clones incompletely or not at
         # all): the room it takes is the step's second cache
-        stacks = {k: cache[k] for k in ("k", "v", "local", "global")
+        stacks = {k: cache[k] for k in ("k", "v", "local", "global",
+                                        "dense", "ckv", "krope")
                   if k in cache}
         copy = event_ms(lambda: [t.clone() for _, t in
                                  tree.leaves(stacks)], reps=3)
+        gather = moe_gather(cfg, params, B, dev)
     no_launches(counts, f"{label} decode")
     check(finite, f"{label} decode: logits not finite")
     check(pos == LM_DECODE_PROMPT + LM_DECODE_TOKENS,
@@ -2766,6 +2843,13 @@ def lm_decode(cfg, params, B_want, gen, dev, card, label):
             f"the caches' float32 casts {casts:.3f} ms "
             f"({100 * casts / max(busy, 1e-9):.1f}% of busy), "
             f"peak {peak / 1e9:.3f} GB, 0 kernel launches{cut}")
+    if gather is not None:
+        g_ms, g_bytes, n_moe = gather
+        text += (f"; the experts' weight gather {g_ms:.3f} ms a MoE layer "
+                 f"between events x {n_moe} layers "
+                 f"({100 * g_ms * n_moe / step_wall:.1f}% of the step's "
+                 f"wall; {g_bytes / 1e9:.3f} GB gathered a layer, bound "
+                 f"{2 * g_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
     print(f"# {label} on {card}: {text}")
     for name, ms in top_items(ev):
         print(f"    {ms:9.3f} ms  {name[:100]}")
@@ -2773,9 +2857,29 @@ def lm_decode(cfg, params, B_want, gen, dev, card, label):
     return text, counts
 
 
+def moe_gather(cfg, params, B: int, dev):
+    """Decode's gather of each row's k experts' weights (``_moe1``:
+    ``[B, k, d, de]`` a weight) for one MoE layer, alone between CUDA
+    events, on distinct random experts a row: ``(ms, bytes gathered,
+    MoE layers a step)``, or None outside the moe family."""
+    import torch
+    from repro_torch.models import transformer as tf
+    if cfg.family != "moe":
+        return None
+    lp = tf.layer(params, 0)["moe"]
+    ids = torch.rand((B, cfg.n_experts), device=dev).argsort(-1)[
+        :, :cfg.top_k]
+    ms = event_ms(lambda: [lp[n][ids] for n in ("wi", "wg", "wo")], reps=5)
+    n_bytes = 3 * B * cfg.top_k * cfg.d_model * cfg.d_expert * \
+        lp["wi"].element_size()
+    return ms, n_bytes, tf.depth(params)
+
+
 def lm_decode_check(arch, gen, dev, card) -> str:
     """Decode against forward at the published width cut to 2 layers
-    (one local/global pair for gemma2), f32 weights (TF32 off): a prompt
+    (one local/global pair for gemma2; one dense and one MoE layer for
+    the moe pair, at the reference test's drop-free capacity
+    ``capacity_factor = n_experts``), f32 weights (TF32 off): a prompt
     of ``LM_CHECK_PROMPT`` tokens past the window for the windowed
     configs (so the rings wrap), else ``LM_CHECK_PROMPT``, decoded token
     by token against forward's last position (rel < 2e-2, argmax
@@ -2784,6 +2888,8 @@ def lm_decode_check(arch, gen, dev, card) -> str:
     from repro_torch.models import transformer as tf
     from repro_torch.serving import decode, kvcache
     cfg = lm_config(arch, 2)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
     S = cfg.window + LM_CHECK_PROMPT if cfg.window else LM_CHECK_PROMPT
     t0 = time.time()
     p32 = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -2805,7 +2911,8 @@ def lm_decode_check(arch, gen, dev, card) -> str:
     rel = float((last - fwd).abs().max()) / (float(fwd.abs().max()) + 1e-9)
     same = int((last.argmax(-1) == fwd.argmax(-1)).sum())
     text = (f"decode vs forward (f32, 2 layers, [{LM_CHECK_BATCH}, {S}] "
-            f"prompt): rel {rel:.3e}, argmax equal on {same}/"
+            f"prompt{', drop-free capacity' if cfg.family == 'moe' else ''}"
+            f"): rel {rel:.3e}, argmax equal on {same}/"
             f"{LM_CHECK_BATCH} rows ({time.time() - t0:.1f}s)")
     print(f"# {arch} on {card}: {text}")
     check(rel < 2e-2, f"{arch}: decode diverges from forward: rel {rel}")
@@ -2817,11 +2924,12 @@ def lm_decode_check(arch, gen, dev, card) -> str:
 
 
 def lm_phase(dev, card):
-    """Phase 14: the seven GQA families' serving paths on the card
-    (``LM_SERVE``): each model from ``init_params`` in bf16
-    (``torch.Generator`` seed 0, on the card) at its published width
-    (gemma2-9b, h2o-danube3-4b, hymba-1.5b and whisper-small at their
-    published depth; llama3-405b, qwen2-72b and qwen2-vl-72b cut to 2
+    """Phase 14: the LM serving paths on the card (``LM_SERVE``): the
+    seven GQA families, then the moe pair, each model from
+    ``init_params`` in bf16 (``torch.Generator`` seed 0, on the card) at
+    its published width (gemma2-9b, h2o-danube3-4b, hymba-1.5b,
+    whisper-small and deepseek-moe-16b at their published depth;
+    llama3-405b, qwen2-72b, qwen2-vl-72b and deepseek-v2-236b cut to 2
     layers: their bf16 weights do not fit one card), prefill
     (``lm_prefill``) and greedy decode (``lm_decode``), then each
     config's decode against its forward in f32 at 2 layers
@@ -2844,6 +2952,14 @@ def lm_phase(dev, card):
         n_par = sum(t.numel() for _, t in tree.leaves(params))
         depth = (f"{cfg.n_layers} layers" if layers is None else
                  f"CUT to {layers} layers of {lm_config(arch, None).n_layers}")
+        if cfg.family == "moe":
+            depth += (f" ({cfg.n_dense_layers} dense, "
+                      f"{cfg.n_layers - cfg.n_dense_layers} MoE: "
+                      f"{cfg.n_experts} experts of {cfg.d_expert}, top "
+                      f"{cfg.top_k}, {cfg.n_shared_experts} shared"
+                      + (f"; MLA kv_lora {cfg.kv_lora}, q_lora "
+                         f"{cfg.q_lora}, rope {cfg.rope_head_dim}"
+                         if cfg.use_mla else "") + ")")
         print(f"# {arch} ({cfg.family}, {cfg.layer_pattern}"
               f"{f', window {cfg.window}' if cfg.window else ''}): "
               f"{depth}, d_model {cfg.d_model}, {cfg.n_heads} heads / "
@@ -2867,7 +2983,7 @@ def lm_phase(dev, card):
               f"{time.time() - t0:.1f}s in all")
     for arch, *_ in LM_SERVE:
         summary[arch] += "; " + lm_decode_check(arch, gen, dev, card)
-    print(f"# GQA serving phase: {time.time() - t_all:.1f}s")
+    print(f"# LM serving phase: {time.time() - t_all:.1f}s")
     return counts, summary
 
 
@@ -3046,8 +3162,9 @@ def main(argv=None) -> int:
     counts.update(tcounts)
     wkv6_row.update(train_fields)
 
-    # -- the seven GQA families' serving paths: prefill and decode
-    lcounts, gqa = lm_phase(dev, card)
+    # -- the LM serving paths (the GQA families, the moe pair): prefill
+    # and decode
+    lcounts, lm = lm_phase(dev, card)
     counts.update(lcounts)
 
     for r in rows:
@@ -3073,7 +3190,7 @@ def main(argv=None) -> int:
           f"join {large_rates['join']}")
     print(f"# rwkv6-3b on {card}: " + "; ".join(
         f"{path} {v}" for path, v in rwkv.items()))
-    for arch, v in gqa.items():
+    for arch, v in lm.items():
         print(f"# {arch} on {card}: {v}")
     print(f"# smoke finished in {time.time()-t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -2,8 +2,8 @@
 
 ``get_config(name)`` returns the exact published config;
 ``reduced(cfg)`` shrinks it for CPU smoke tests (same family/topology,
-small widths). A copy of the JAX package's registry (data only); only
-``rwkv6_3b`` has a model path in the port so far.
+small widths). A copy of the JAX package's registry (data only); every
+config serves in the port, and ``rwkv6_3b`` alone trains (ROADMAP A13c).
 """
 from __future__ import annotations
 

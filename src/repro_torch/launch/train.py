@@ -5,8 +5,8 @@ card unless ``--device cpu``): builds the train state, restores the
 newest checkpoint if there is one, installs the preemption handler, and
 train-loops with periodic atomic checkpoints and straggler heartbeats.
 Only the ssm family (rwkv6) trains in the port; another ``--arch``
-raises ``NotImplementedError`` (the dense, hybrid and encdec families
-serve, but their training is ROADMAP A13c; the moe family is A13b).
+raises ``NotImplementedError`` (the other nine configs serve, but their
+training is ROADMAP A13c).
 ``--mesh`` other than one device is ROADMAP A11 (sharding is the
 multi-GPU slice) and raises.
 
@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.models import transformer as tf
 from repro_torch.training import checkpoint, fault_tolerance
 from repro_torch.training import optimizer as opt
 from repro_torch.training import train_loop
@@ -67,7 +66,6 @@ def setup(args: argparse.Namespace):
     cfg = configs.get_config(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    tf.require_ported(cfg)
     if cfg.family != "ssm":
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the port trains the ssm family "

@@ -1,6 +1,6 @@
-"""GQA attention (bias, softcap, sliding window) and cross-attention.
+"""Attention flavours: GQA (bias, softcap, sliding window), MLA, cross.
 
-The port of the GQA half of the JAX package's ``models/attention.py``.
+The port of the JAX package's ``models/attention.py``.
 Full-sequence attention is computed **blockwise** (flash-style online
 softmax over KV chunks), so a 32K-token prefill never materializes an
 [S, S] score matrix; decode attends densely over the cache (an [B, H, S]
@@ -16,9 +16,18 @@ multiply by its reciprocal on the card, which rounds otherwise when
 reference's finite ``NEG_INF``: a window's first chunk can mask a row
 whole, and ``-inf`` would then give ``exp(-inf - -inf)`` = NaN, where
 the finite value gives a partial that the next chunk's rescale wipes
-out. MLA (deepseek-v2) is ROADMAP A13b.
+out.
+
+MLA (deepseek-v2): ``mla_project`` makes the per-head queries (through
+the ``q_lora`` bottleneck), the compressed latent ``c_kv`` and one rope
+key shared by all heads; ``mla_attention`` expands the latent into
+per-head keys and values for prefill and runs ``blockwise_attention``
+with D = d_nope + d_rope (192) and Dv = d_v (128). Decode keeps the
+latent and attends in its space (``serving/decode._mla_decode``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -163,3 +172,53 @@ def gqa_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
     return (q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
             v.permute(0, 2, 1, 3))
+
+
+class MLAProj(NamedTuple):
+    q_nope: torch.Tensor   # [B, H, S, d_nope]
+    q_rope: torch.Tensor   # [B, H, S, d_rope]
+    c_kv: torch.Tensor     # [B, S, kv_lora]    the compressed cache
+    k_rope: torch.Tensor   # [B, S, d_rope]     shared across heads
+
+
+def mla_project(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor) -> MLAProj:
+    """DeepSeek-V2 multi-head latent attention projections."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    if cfg.q_lora:
+        cq = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+        q = torch.einsum("bsr,rq->bsq", cq, p["wq_b"])
+    else:
+        q = torch.einsum("bsd,dq->bsq", x, p["wq"])
+    q = q.reshape(B, S, H, cfg.mla_d_nope + cfg.rope_head_dim)
+    q_nope, q_rope = torch.split(q, [cfg.mla_d_nope, cfg.rope_head_dim],
+                                 dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckr = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv, k_rope = torch.split(ckr, [cfg.kv_lora, cfg.rope_head_dim],
+                               dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return MLAProj(q_nope.permute(0, 2, 1, 3), q_rope.permute(0, 2, 1, 3),
+                   c_kv, k_rope)
+
+
+def mla_attention(cfg: ModelConfig, p: dict, proj: MLAProj, *,
+                  causal: bool = True, q_chunk: int = 1024,
+                  kv_chunk: int = 1024) -> torch.Tensor:
+    """Per-head K/V materialized from the latent through ``wkv_b``'s two
+    halves, then blockwise attention. Returns [B, S, H·d_v]."""
+    B, H, S, _ = proj.q_nope.shape
+    wk = p["wkv_b"][:, :H * cfg.mla_d_nope]
+    wv = p["wkv_b"][:, H * cfg.mla_d_nope:]
+    k_nope = torch.einsum("bsr,rk->bsk", proj.c_kv, wk).reshape(
+        B, S, H, cfg.mla_d_nope).permute(0, 2, 1, 3)
+    v = torch.einsum("bsr,rk->bsk", proj.c_kv, wv).reshape(
+        B, S, H, cfg.mla_d_v).permute(0, 2, 1, 3)
+    k_rope = proj.k_rope[:, None].expand(B, H, S, cfg.rope_head_dim)
+    q = torch.cat([proj.q_nope, proj.q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    o = blockwise_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)
+    return o.permute(0, 2, 1, 3).reshape(B, S, H * cfg.mla_d_v)

@@ -12,11 +12,12 @@ Families:
   dense   — llama3 / qwen2 / qwen2-vl / gemma2 / h2o-danube (GQA,
             softcap, SWA, bias; gemma2's local/global alternation runs
             over layer pairs)
+  moe     — deepseek-moe / deepseek-v2 (shared + routed experts,
+            ``models/moe.py``; v2 adds MLA); the leading dense layers
+            are a stack of their own, ``dense_layers``, run first
   ssm     — rwkv6 (attention-free; the ``wkv6`` CUDA kernel)
   hybrid  — hymba (parallel SWA-attention + Mamba heads)
   encdec  — whisper (stub audio frontend; cross-attention decoder)
-The moe family (deepseek-moe, deepseek-v2 with MLA) raises
-``NotImplementedError``: it is ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -30,19 +31,12 @@ from torch.utils.checkpoint import (
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moelib
 from repro_torch.models import ssm as ssmlib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import act_fn, dense_init, rmsnorm, softcap
 
 Params = Dict[str, Any]
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family the port has no model path for yet."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the moe family (MoE FFN, MLA) is "
-            "not ported; it is ROADMAP A13b")
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +50,20 @@ def _attn_params(cfg: ModelConfig, gen: torch.Generator, dtype,
     def init(shape):
         return dense_init(gen, shape, dtype=dtype, device=device)
 
-    p: Params = {"wq": init((d, cfg.q_dim)), "wk": init((d, cfg.kv_dim)),
-                 "wv": init((d, cfg.kv_dim)), "wo": init((cfg.q_dim, d))}
+    if cfg.use_mla:
+        p: Params = {}
+        if cfg.q_lora:
+            p["wq_a"] = init((d, cfg.q_lora))
+            p["wq_b"] = init((cfg.q_lora, cfg.q_dim))
+        else:
+            p["wq"] = init((d, cfg.q_dim))
+        p["wkv_a"] = init((d, cfg.kv_lora + cfg.rope_head_dim))
+        p["wkv_b"] = init((cfg.kv_lora,
+                           cfg.n_heads * (cfg.mla_d_nope + cfg.mla_d_v)))
+        p["wo"] = init((cfg.n_heads * cfg.mla_d_v, d))
+        return p
+    p = {"wq": init((d, cfg.q_dim)), "wk": init((d, cfg.kv_dim)),
+         "wv": init((d, cfg.kv_dim)), "wo": init((cfg.q_dim, d))}
     if cfg.qkv_bias:
         for nm, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
                       ("bv", cfg.kv_dim)):
@@ -72,6 +78,25 @@ def _mlp_params(cfg: ModelConfig, gen: torch.Generator, dtype,
          "wo2": dense_init(gen, (f, d), dtype=dtype, device=device)}
     if cfg.act == "silu":  # gated (llama-style); whisper uses plain gelu
         p["wg"] = dense_init(gen, (d, f), dtype=dtype, device=device)
+    return p
+
+
+def _moe_params(cfg: ModelConfig, gen: torch.Generator, dtype,
+                device) -> Params:
+    """The router (float32 whatever ``dtype``), the routed experts and
+    the shared experts."""
+    d, E, de = cfg.d_model, cfg.n_experts, cfg.d_expert
+
+    def init(shape, dt=dtype):
+        return dense_init(gen, shape, dtype=dt, device=device)
+
+    p = {"router": init((d, E), torch.float32), "wi": init((E, d, de)),
+         "wg": init((E, d, de)), "wo": init((E, de, d))}
+    if cfg.n_shared_experts:
+        dsh = cfg.n_shared_experts * de
+        p["sh_wi"] = init((d, dsh))
+        p["sh_wg"] = init((d, dsh))
+        p["sh_wo"] = init((dsh, d))
     return p
 
 
@@ -142,8 +167,9 @@ def _mamba_params(cfg: ModelConfig, gen: torch.Generator, dtype,
 
 
 def _block_params(cfg: ModelConfig, gen: torch.Generator, dtype,
-                  device) -> Params:
-    require_ported(cfg)
+                  device, moe_layer: bool = False) -> Params:
+    """One layer's parameters: a block holds ``moe`` (``moe_layer``) or
+    ``mlp``, never both."""
     d = cfg.d_model
     p: Params = {"norm1": torch.zeros((d,), dtype=dtype, device=device),
                  "norm2": torch.zeros((d,), dtype=dtype, device=device)}
@@ -154,7 +180,10 @@ def _block_params(cfg: ModelConfig, gen: torch.Generator, dtype,
     if cfg.name.startswith("gemma2"):
         p["norm_post1"] = torch.zeros((d,), dtype=dtype, device=device)
         p["norm_post2"] = torch.zeros((d,), dtype=dtype, device=device)
-    p["mlp"] = _mlp_params(cfg, gen, dtype, device)
+    if moe_layer:
+        p["moe"] = _moe_params(cfg, gen, dtype, device)
+    else:
+        p["mlp"] = _mlp_params(cfg, gen, dtype, device)
     if cfg.family == "hybrid":
         p["ssm"] = _mamba_params(cfg, gen, dtype, device)
     return p
@@ -179,9 +208,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     L times (gemma2: one local and one global layer, each repeated L/2
     times; whisper: one encoder and one decoder layer); the stacks are
     materialised, so the device holds every layer's weights as a trained
-    model would. The names, shapes and dtypes are the reference's.
+    model would. The names, shapes and dtypes are the reference's. The
+    moe family's ``layers`` are its ``n_layers - n_dense_layers`` MoE
+    blocks, and ``dense_layers`` its ``n_dense_layers`` leading blocks
+    with the dense FFN at ``d_ff``.
     """
-    require_ported(cfg)
     device = resolve_device(device)
     d, Vp = cfg.d_model, cfg.vocab_padded
 
@@ -196,7 +227,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                       "final_norm": zeros((d,))}
     if not cfg.tie_embeddings:
         params["lm_head"] = init((d, Vp))
-    one = _block_params(cfg, generator, dtype, device)
+    moe = cfg.family == "moe"
+    one = _block_params(cfg, generator, dtype, device, moe_layer=moe)
     if cfg.layer_pattern == "alt_local_global":
         if cfg.n_layers % 2:
             raise ValueError(f"{cfg.name}: alt_local_global needs an even "
@@ -205,7 +237,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "global": _block_params(cfg, generator, dtype, device)}
         params["layers"] = _stack(pair, cfg.n_layers // 2)
     else:
-        params["layers"] = _stack(one, cfg.n_layers)
+        params["layers"] = _stack(
+            one, cfg.n_layers - cfg.n_dense_layers if moe else cfg.n_layers)
+    if moe and cfg.n_dense_layers:
+        params["dense_layers"] = _stack(
+            _block_params(cfg, generator, dtype, device), cfg.n_dense_layers)
     if cfg.family == "encdec":
         enc_one = {"norm1": zeros((d,)), "norm2": zeros((d,)),
                    "attn": _attn_params(cfg, generator, dtype, device),
@@ -229,8 +265,9 @@ def _index(tree, i: int):
 
 
 def layer(params: Params, i: int, stack: str = "layers") -> Params:
-    """Layer ``i``'s parameters of ``params[stack]`` (``"layers"`` or
-    whisper's ``"enc_layers"``), nested dicts and all: views into the
+    """Layer ``i``'s parameters of ``params[stack]`` (``"layers"``,
+    whisper's ``"enc_layers"`` or the moe family's ``"dense_layers"``),
+    nested dicts and all: views into the
     ``[L, ...]`` stacks (or the ``i``-th entry where a stack is held as a
     sequence of per-layer tensors, as the train step holds it). For
     gemma2, layer ``i`` is the ``{"local", "global"}`` pair ``i``."""
@@ -263,10 +300,15 @@ def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def _attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
                 *, causal: bool, window: int) -> torch.Tensor:
     B, S, _ = x.shape
-    q, k, v = attn.gqa_qkv(cfg, p, x, positions)
-    o = attn.blockwise_attention(q, k, v, causal=causal, window=window,
-                                 cap=cfg.attn_softcap)
-    o = o.permute(0, 2, 1, 3).reshape(B, S, cfg.q_dim)
+    if cfg.use_mla:
+        o = attn.mla_attention(cfg, p, attn.mla_project(cfg, p, x,
+                                                        positions),
+                               causal=causal)
+    else:
+        q, k, v = attn.gqa_qkv(cfg, p, x, positions)
+        o = attn.blockwise_attention(q, k, v, causal=causal, window=window,
+                                     cap=cfg.attn_softcap)
+        o = o.permute(0, 2, 1, 3).reshape(B, S, cfg.q_dim)
     return torch.einsum("bsq,qd->bsd", o, p["wo"])
 
 
@@ -283,7 +325,10 @@ def hybrid_mix(cfg: ModelConfig, p: Params, a: torch.Tensor,
 
 
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
-                 *, window: int) -> torch.Tensor:
+                 *, window: int, use_moe: bool = False) -> torch.Tensor:
+    """Attention, then the FFN (the MoE block when ``use_moe``, whose
+    ``MoEStats`` are dropped as the reference drops them), each with
+    its residual."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     a = _attn_block(cfg, p["attn"], h, positions, causal=True, window=window)
     if cfg.family == "hybrid":
@@ -295,7 +340,10 @@ def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
         a = rmsnorm(a, p["norm_post1"], cfg.norm_eps)
     x = x + a
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    f = _mlp(cfg, p["mlp"], h)
+    if use_moe:
+        f, _ = moelib.moe_ffn(cfg, p["moe"], h)
+    else:
+        f = _mlp(cfg, p["mlp"], h)
     if "norm_post2" in p:
         f = rmsnorm(f, p["norm_post2"], cfg.norm_eps)
     return x + f
@@ -435,14 +483,14 @@ def forward(cfg: ModelConfig, params: Params,
 
     ``batch``: {"tokens": [B,S]} or {"embeds": [B,S,d]} (qwen2-vl's
     modality stub), plus {"frames": [B,enc_seq,d]} for the enc-dec
-    family. rwkv6's time-mix runs one ``wkv6`` scan a layer over the
+    family. The moe family runs its ``dense_layers`` first, then its
+    MoE ``layers``. rwkv6's time-mix runs one ``wkv6`` scan a layer over the
     whole sequence; the other families launch no kernel of
     ``kernels/csrc`` (their attention and Mamba scan are plain PyTorch,
     as the reference's are plain JAX). Under autograd each layer is
     checkpointed by ``remat_policy`` (``_remat``), which does not change
     the values; under ``torch.no_grad()`` it costs nothing.
     """
-    require_ported(cfg)
     if "embeds" in batch:
         x = batch["embeds"].to(params["embed"].dtype)
         B, S, _ = x.shape
@@ -463,8 +511,15 @@ def forward(cfg: ModelConfig, params: Params,
         x = x + params["dec_pos"][None, :S]
         block = functools.partial(_encdec_block, cfg, enc_out, positions)
     else:
+        use_moe = cfg.family == "moe"
+        if use_moe and "dense_layers" in params:
+            def dblock(p, h):
+                return _dense_block(cfg, p, h, positions, window=window)
+            x = _run_layers(params, "dense_layers", dblock, x, remat_policy)
+
         def block(p, h):
-            return _dense_block(cfg, p, h, positions, window=window)
+            return _dense_block(cfg, p, h, positions, window=window,
+                                use_moe=use_moe)
     x = _run_layers(params, "layers", block, x, remat_policy)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

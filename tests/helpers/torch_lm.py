@@ -11,6 +11,9 @@ import torch
 # the seven configs served with the reference's plain GQA attention
 GQA_ARCHS = ("llama3_405b", "qwen2_72b", "qwen2_vl_72b", "gemma2_9b",
              "h2o_danube3_4b", "hymba_1_5b", "whisper_small")
+# the moe family: routed + shared experts (deepseek-moe with GQA,
+# deepseek-v2 with MLA and its latent cache)
+MOE_ARCHS = ("deepseek_moe_16b", "deepseek_v2_236b")
 # the parameters the reference initializes to a constant (zeros, ones,
 # -4.6): drawn afresh here so that a misplaced one shows
 CONSTANT_INIT = ("bq", "bk", "bv", "norm1", "norm2", "norm_post1",

@@ -1105,9 +1105,10 @@ def test_train_entry_points_run_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the GQA serving families (dense ×5, hymba, whisper): forward and decode on
-# the card against the same port code on the CPU, float32, within 1e-4 of
-# the largest magnitude; no kernel of kernels/csrc launches on these paths
+# the LM serving families (dense ×5, hymba, whisper, the moe pair):
+# forward and decode on the card against the same port code on the CPU,
+# float32, within 1e-4 of the largest magnitude; no kernel of
+# kernels/csrc launches on these paths
 # ---------------------------------------------------------------------------
 
 def _lm_world(arch, dev):
@@ -1135,7 +1136,8 @@ def _lm_close(got, want, tol=1e-4):
 
 @pytest.mark.parametrize("arch", ["llama3_405b", "qwen2_72b", "qwen2_vl_72b",
                                   "gemma2_9b", "h2o_danube3_4b",
-                                  "hymba_1_5b", "whisper_small"])
+                                  "hymba_1_5b", "whisper_small",
+                                  "deepseek_moe_16b", "deepseek_v2_236b"])
 def test_lm_serving_card_against_cpu(cuda, arch):
     """``forward`` over 24 tokens (past the reduced window of 16) and
     ``prefill_via_decode`` of the same tokens (the rings wrap), every
@@ -1170,3 +1172,79 @@ def test_lm_serving_card_against_cpu(cuda, arch):
     for name, t in tree.leaves(cg):
         assert t.device.type == "cuda", name
         _lm_close(t, want[name])
+
+
+# ---------------------------------------------------------------------------
+# the moe family's pieces: moe_ffn (its stats exact, its bf16 combine the
+# same bits run to run) and MLA decode against the latent cache, on the
+# card against the CPU
+# ---------------------------------------------------------------------------
+
+def _moe_block(arch, dev, dtype=torch.float32):
+    from repro_torch.models import transformer as tf
+    cfg, p_cpu, p_card, _ = _lm_world(arch, dev)
+    def cast(p):
+        return {k: v if k == "router" else v.to(dtype)
+                for k, v in tf.layer(p, 0)["moe"].items()}
+    return cfg, cast(p_cpu), cast(p_card)
+
+
+@pytest.mark.parametrize("kw", [{}, {"capacity_factor": 8.0},
+                                {"deterministic_capacity": 5}],
+                         ids=["capacity_1.25", "drop_free", "deterministic"])
+def test_moe_ffn_card_against_cpu(cuda, kw):
+    """``load`` and ``dropped_frac`` equal, the output within 1e-4."""
+    from repro_torch.models import moe
+    cfg, p_cpu, p_card = _moe_block("deepseek_moe_16b", cuda)
+    x = torch.from_numpy(np.random.default_rng(17).normal(
+        size=(2, 40, 64)).astype(np.float32))
+    want, wst = moe.moe_ffn(cfg, p_cpu, x, **kw)
+    got, gst = moe.moe_ffn(cfg, p_card, x.to(cuda), **kw)
+    _lm_close(got, want)
+    assert torch.equal(gst.load.cpu(), wst.load)
+    assert float(gst.dropped_frac) == float(wst.dropped_frac)
+
+
+def test_moe_ffn_bf16_same_bits_run_to_run(cuda):
+    """bf16 on the card, 2,048 tokens at a capacity of 400 (~500 pairs
+    an expert, so many drop into the spare row at once): two runs give
+    the same bits (the dispatch writes distinct slots and the combine
+    adds in a fixed order: no atomic add), the stats equal the CPU's."""
+    from repro_torch.models import moe
+    cfg, p_cpu, p_card = _moe_block("deepseek_moe_16b", cuda,
+                                    torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(4, 512, 64)).astype(np.float32)).to(torch.bfloat16)
+    kw = {"deterministic_capacity": 400}
+    first, st = moe.moe_ffn(cfg, p_card, x.to(cuda), **kw)
+    again, _ = moe.moe_ffn(cfg, p_card, x.to(cuda), **kw)
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16))
+    _, wst = moe.moe_ffn(cfg, p_cpu, x, **kw)
+    assert torch.equal(st.load.cpu(), wst.load)
+    assert float(st.dropped_frac) > 0
+
+
+@pytest.mark.parametrize("pos", [5, 31, 40])
+def test_mla_decode_card_against_cpu(cuda, pos):
+    """One MLA decode layer against a noisy latent cache of 32 slots:
+    the output and the written latent; at 40 the write past the cache
+    is dropped (no index past S reaches the card)."""
+    from repro_torch.serving import decode
+    from repro_torch.models import transformer as tf
+    cfg, p_cpu, p_card, _ = _lm_world("deepseek_v2_236b", cuda)
+    rng = np.random.default_rng(pos)
+    h = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32))
+    ckv = torch.from_numpy(rng.normal(size=(3, 32, 32)).astype(np.float32))
+    kr = torch.from_numpy(rng.normal(size=(3, 32, 8)).astype(np.float32))
+    outs = {}
+    for where, p, dev in (("cpu", p_cpu, "cpu"), ("card", p_card, cuda)):
+        c, k = ckv.to(dev), kr.to(dev)
+        o = decode._mla_decode(cfg, tf.layer(p, 0)["attn"], h.to(dev), c, k,
+                               torch.tensor(pos, dtype=torch.int32,
+                                            device=dev))
+        outs[where] = (o, c, k)
+    for got, want in zip(outs["card"], outs["cpu"]):
+        _lm_close(got, want)
+    if pos >= 32:
+        assert torch.equal(outs["card"][1].cpu(), ckv)

@@ -14,8 +14,8 @@ bound). Whisper's cross cache is filled from the same frames on both
 sides: the reference's test helper ``encode_and_fill_cross`` and the
 port's copy (``helpers.torch_lm.fill_cross``). Tolerance: within 1e-4
 of the largest magnitude (float32, sums in another order); ``pos`` and
-the layouts are exact. The moe family's refusals are in
-``tests/test_torch_rwkv.py``.
+the layouts are exact. The moe family's decode path is in
+``tests/test_torch_moe.py``.
 """
 import numpy as np
 import pytest

@@ -155,27 +155,12 @@ def test_entry_points_default_to_the_card(world, make):
             make(world["cfg"])
 
 
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_236b"])
-def test_other_families_name_the_roadmap(arch):
-    """The moe family (MoE FFN, MLA) has no model path yet: every entry
-    point raises naming ROADMAP A13 (A13b) before it touches a tensor."""
-    cfg = configs.reduced(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        kvcache.make_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tf.forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="A13"):
-        decode.decode_step(cfg, {}, {}, torch.zeros((1, 1),
-                                                    dtype=torch.long))
-
-
 @pytest.mark.parametrize("arch", ["llama3_405b", "qwen2_72b", "qwen2_vl_72b",
                                   "gemma2_9b", "h2o_danube3_4b",
-                                  "hymba_1_5b", "whisper_small"])
+                                  "hymba_1_5b", "whisper_small",
+                                  "deepseek_moe_16b", "deepseek_v2_236b"])
 def test_training_refuses_serving_families(arch):
-    """The seven GQA families serve but do not train yet:
+    """The nine other configs serve but do not train yet:
     ``launch/train.setup`` raises naming ROADMAP A13 (A13c)."""
     from repro_torch.launch import train
     args = train.parse_args(["--arch", arch, "--reduced", "--device", "cpu",
