@@ -133,16 +133,32 @@ Phases, each failing the run (non-zero exit) on its own error:
    the published width cut to one layer (loss and grad norm within
    1e-4 relative); then ``launch/train.py``'s defaults at
    the published width (batch 8 x seq 128, float32, AdamW, remat
-   "dots") for 5 steps through its ``setup`` and step (gates: finite
+   "dots") for 3 steps through its ``setup`` and step (gates: finite
    loss and grad norm, 64 wkv6 launches a step, params changed), with
    step ms, tokens/s, peak memory, a CUPTI profile of one more step,
    and the forward kernel's and the plain backward's device ms a call;
+13b. the nine other LM families' training (``lm_train_phase``): one
+   driver step on the card against the same step on the CPU from the
+   same float32 weights at each config's ``reduced(...)`` and at
+   h2o-danube3-4b's published width cut to one layer (loss and grad
+   norm within 1e-4 relative); then each config at its published width
+   (``LM_TRAIN``: whisper-small and hymba-1.5b at their published
+   depth through ``launch/train.py``'s ``setup``, the others cut to the
+   deepest depth whose params, grads, m and v fit 60 GB, llama3-405b
+   and deepseek-v2-236b with bf16 params and AdamW state), 3 steps of
+   the driver's defaults (batch 8 x seq 128, AdamW, remat "dots", seed
+   0): gates: finite loss and grad norm, params changed in every stack
+   (``embed``, each stack's ``attn/wo``, the MoE router, the
+   cross-attention), no kernel of the thirteen launched; step ms,
+   tokens/s, peak memory, a CUPTI profile of one more step;
 14. the seven configs served with plain GQA attention (``lm_phase``),
    each from ``init_params`` in bf16 (``torch.Generator`` seed 0, on the
-   card) at its published width: gemma2-9b (42 layers; 9.2B
-   parameters), h2o-danube3-4b, hymba-1.5b and whisper-small at their
-   published depth, llama3-405b, qwen2-72b and qwen2-vl-72b (``embeds``
-   input) cut to 2 layers (their bf16 weights do not fit one card).
+   card) at its published width: whisper-small at its published depth;
+   gemma2-9b cut to 14 of 42 layers (7 local/global pairs),
+   h2o-danube3-4b and hymba-1.5b to 8 of 24 and 32 (all three for the
+   smoke's time limit); llama3-405b, qwen2-72b and qwen2-vl-72b
+   (``embeds`` input) cut to 2 layers (their bf16 weights do not fit
+   one card).
    Prefill ``forward`` at the longest listed shape whose reckoned peak
    fits (gemma2 [1, 32768], else [1, 16384]; h2o [1, 32768]; hymba
    [1, 2048]; whisper [8, 448] with ``frames [8, 1500, 768]``; the cut
@@ -158,8 +174,8 @@ Phases, each failing the run (non-zero exit) on its own error:
    the cache's ``pos``; decode against forward in f32 at 2 layers (one
    gemma2 pair) on a prompt 64 tokens past the window (the rings wrap),
    rel < 2e-2, argmax equal; then the moe pair the same way:
-   deepseek-moe-16b at its published depth (28 layers: 1 dense, 27 MoE;
-   16.4B parameters; prefill [1, 32768] if its reckoned peak, the MoE
+   deepseek-moe-16b cut to 6 of 28 layers for the time limit (1 dense,
+   5 MoE; prefill [1, 32768] if its reckoned peak, the MoE
    block's transients included, fits, else [1, 16384]; decode wanted at
    batch 8, cut to what fits) and deepseek-v2-236b at its published
    width cut to 2 layers (1 dense, 1 MoE; MLA's latent cache; prefill
@@ -2241,7 +2257,7 @@ def rwkv_phase(dev, card):
 # rwkv6-3b training: launch/train.py's defaults at the published width
 TRAIN_ARGV = ("--arch", "rwkv6-3b", "--batch", "8", "--seq", "128",
               "--dtype", "float32", "--accum", "1", "--device", "cuda")
-TRAIN_STEPS = 5                          # cut from the driver's --steps 100
+TRAIN_STEPS = 3                          # cut from the driver's --steps 100
 TRAIN_TOL = 1e-4                         # card step against the CPU's
 WKV6_GRAD_SHAPES = ((320, 128), (8, 37))  # a full-width layer; odd T
 # the card-against-CPU steps: (what, "reduced" or the published width's
@@ -2295,6 +2311,42 @@ def wkv6_grad_check(dev, BH: int, T: int, seed: int) -> dict:
     return errs
 
 
+def train_step_check(label, cfg, ocfg, B, T, dev):
+    """One train step (``ocfg``, remat "dots") on the card against the
+    same step on the CPU from the same float32 weights (drawn on the
+    card, copied to the host first): loss and grad norm within
+    ``TRAIN_TOL`` relative. Returns ``(the larger relative difference,
+    the card step's launch counts)``."""
+    import torch
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import train
+    from repro_torch.training import train_loop, tree
+    s_card = train_loop.init_train_state(
+        cfg, torch.Generator(dev).manual_seed(0), dtype=torch.float32,
+        opt_cfg=ocfg, device=dev)
+    s_cpu = tree.rebuild(s_card, lambda _, t: t.to("cpu", copy=True))
+    batch = train.synthetic_batch(cfg, B, T, 0)
+    step = train_loop.make_train_step(cfg, opt_cfg=ocfg)
+    kcuda.reset_launch_counts()
+    s_card, m_card = step(s_card, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    s_cpu, m_cpu = step(s_cpu, batch)
+    rel = {k: abs(float(m_card[k]) - float(m_cpu[k])) /
+           max(abs(float(m_cpu[k])), 1e-30) for k in ("loss", "grad_norm")}
+    print(f"  {label} [{B}, {T}]: card loss {float(m_card['loss']):.6f} "
+          f"gnorm {float(m_card['grad_norm']):.6f}, CPU loss "
+          f"{float(m_cpu['loss']):.6f} gnorm {float(m_cpu['grad_norm']):.6f}"
+          f"; rel {rel['loss']:.3e} / {rel['grad_norm']:.3e} (tolerance "
+          f"{TRAIN_TOL}); kernel launches "
+          f"{ {n: c for n, c in counts.items() if c} or 'none'}")
+    check(max(rel.values()) <= TRAIN_TOL,
+          f"train step, {label}: card against CPU rel {rel}")
+    del s_card, s_cpu, m_card, m_cpu
+    torch.cuda.empty_cache()
+    return max(rel.values()), counts
+
+
 def train_phase(dev, card):
     """Phase 13: rwkv6-3b training. (a) ``ops.wkv6`` under autograd
     against the plain scan under autograd (``WKV6_GRAD_SHAPES``); (b) one
@@ -2314,8 +2366,7 @@ def train_phase(dev, card):
     from repro_torch import configs
     from repro_torch.kernels import cuda as kcuda, ops, ref
     from repro_torch.launch import train
-    from repro_torch.training import train_loop, tree
-    from repro_torch.training import optimizer as opt
+    from repro_torch.training import optimizer as opt, tree
     t_all = time.time()
     print(f"# rwkv6-3b training on {card}; {torch.cuda.memory_allocated() / 1e9:.3f} "
           "GB allocated on entry")
@@ -2329,38 +2380,14 @@ def train_phase(dev, card):
     # the depth cut to one layer (the width's GEMMs, dk 64 and the vocab)
     full = configs.get_config("rwkv6_3b")
     ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=0)
+    print("# (b) one step, card against CPU:")
     for what, cfg_r, B, T in TRAIN_CHECKS:
         cfg_r = (configs.reduced(full) if cfg_r == "reduced" else
                  dataclasses.replace(full, n_layers=cfg_r))
-        # drawn on the card (seconds, where the host takes ~30 s at the
-        # published width), copied to the host before the card's step
-        s_card = train_loop.init_train_state(
-            cfg_r, torch.Generator(dev).manual_seed(0), dtype=torch.float32,
-            opt_cfg=ocfg, device=dev)
-        s_cpu = tree.rebuild(s_card, lambda _, t: t.cpu())
-        batch = train.synthetic_batch(cfg_r, B, T, 0)
-        step_r = train_loop.make_train_step(cfg_r, opt_cfg=ocfg)
-        kcuda.reset_launch_counts()
-        s_card, m_card = step_r(s_card,
-                                {k: v.to(dev) for k, v in batch.items()})
-        torch.cuda.synchronize()
-        n_r = kcuda.launch_counts()["wkv6"]
-        s_cpu, m_cpu = step_r(s_cpu, batch)
-        rel = {k: abs(float(m_card[k]) - float(m_cpu[k])) /
-               max(abs(float(m_cpu[k])), 1e-30) for k in ("loss", "grad_norm")}
-        print(f"# (b) one step, {what} [{B}, {T}]: card loss "
-              f"{float(m_card['loss']):.6f} gnorm "
-              f"{float(m_card['grad_norm']):.6f}, CPU loss "
-              f"{float(m_cpu['loss']):.6f} gnorm "
-              f"{float(m_cpu['grad_norm']):.6f}; rel {rel['loss']:.3e} / "
-              f"{rel['grad_norm']:.3e} (tolerance {TRAIN_TOL}); {n_r} wkv6 "
-              "launches")
-        check(max(rel.values()) <= TRAIN_TOL,
-              f"train step, {what}: card against CPU rel {rel}")
-        check(n_r == 2 * cfg_r.n_layers, f"train step, {what}: {n_r} wkv6 "
-              f"launches, not 2 x {cfg_r.n_layers} (forward + remat)")
-        del s_card, s_cpu, m_card, m_cpu
-        torch.cuda.empty_cache()
+        _, c = train_step_check(f"rwkv6-3b, {what}", cfg_r, ocfg, B, T, dev)
+        check(c["wkv6"] == 2 * cfg_r.n_layers, f"train step, {what}: "
+              f"{c['wkv6']} wkv6 launches, not 2 x {cfg_r.n_layers} "
+              "(forward + remat)")
 
     # (c) the driver's defaults at the published width
     argv = list(TRAIN_ARGV) + ["--steps", str(TRAIN_STEPS)]
@@ -2498,6 +2525,220 @@ def train_phase(dev, card):
     return {"train step": counts}, summary, fields
 
 
+# the nine other LM families' training: launch/train.py's defaults at the
+# published width, each at the deepest depth whose state fits
+# LM_TRAIN_STATE_BYTES: (arch, layers: None for the published depth,
+# the dtype of params and of AdamW's m and v)
+LM_TRAIN = (
+    ("whisper_small", None, "float32"),
+    ("hymba_1_5b", None, "float32"),
+    ("h2o_danube3_4b", 22, "float32"),
+    ("gemma2_9b", 14, "float32"),                 # 7 of 21 local/global pairs
+    ("deepseek_moe_16b", 6, "float32"),           # 1 dense + 5 of 27 MoE
+    ("qwen2_72b", 1, "float32"),
+    ("qwen2_vl_72b", 1, "float32"),
+    ("llama3_405b", 1, "bfloat16"),               # the reference's 100B+ state
+    ("deepseek_v2_236b", 2, "bfloat16"),          # 1 dense + 1 of 59 MoE
+)
+LM_TRAIN_STATE_BYTES = 60e9     # params + grads + m + v, beside activations
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128            # the driver's defaults
+# card against CPU at the published width: (arch, layers, batch, seq)
+LM_TRAIN_WIDTH_CHECK = ("h2o_danube3_4b", 1, 2, 64)
+
+
+def train_state_bytes(params, state_dtype) -> tuple[int, int]:
+    """``(bytes of params + grads + m + v, the bytes one more entry of
+    the cut stack would add)``: grads in each param's dtype, m and v in
+    ``state_dtype``; an entry is a layer (gemma2: a local/global pair;
+    moe: an MoE layer)."""
+    from repro_torch.training import tree
+    s = state_dtype.itemsize
+
+    def per(t):
+        return 2 * t.element_size() + 2 * s
+    total = sum(t.numel() * per(t) for _, t in tree.leaves(params))
+    entry = sum(t[0].numel() * per(t) for _, t in tree.leaves(
+        params["layers"]))
+    return total, entry
+
+
+def train_probe_keys(params) -> list:
+    """``embed`` and each stack's first ``attn/wo``, the MoE router and
+    whisper's cross-attention ``wq``: a step that trains changes each."""
+    from repro_torch.training import train_loop, tree
+    keys = [k for k, _ in tree.leaves(params)]
+    return ["embed"] + [
+        next(k for k in keys if k.startswith(f"{s}/")
+             and k.endswith("attn/wo"))
+        for s in train_loop.STACKS if s in params] + [
+        k for k in keys if k.endswith(("moe/router", "xattn/wq"))]
+
+
+def train_probe(params, key, ids):
+    """The ``ids`` rows of ``embed`` (token ids of the first batch: a row
+    no batch reads moves by weight decay alone, below a bf16 ulp), or
+    layer 0's first two rows of a stacked leaf."""
+    from repro_torch.training import tree
+    t = dict(tree.leaves(params))[key]
+    return t[ids] if key == "embed" else t[0, :2]
+
+
+def lm_train_phase(dev, card):
+    """Phase 13b: training the nine other LM families. (a) One driver
+    step on the card against the same step on the CPU at each config's
+    ``reduced(...)`` [8, 128], and at h2o-danube3-4b's published width
+    cut to one layer (``LM_TRAIN_WIDTH_CHECK``); (b) each of ``LM_TRAIN``
+    at its published width and the depth printed (the deepest whose
+    params, grads, m and v fit ``LM_TRAIN_STATE_BYTES``; llama3-405b and
+    deepseek-v2-236b in bf16 with a bf16 AdamW state), ``TRAIN_STEPS``
+    steps of ``launch/train.py``'s defaults (its ``setup`` where no cut
+    is needed, its optimizer and ``synthetic_batch`` otherwise): gates
+    finite loss and grad norm, params changed in every stack, 0 launches
+    of the thirteen kernels; ms a step, tokens/s, peak memory, and one
+    more step under CUPTI (device busy, idle, top items). Returns
+    ``(launch counts by config, the summary by config)``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch import configs
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import train
+    from repro_torch.training import train_loop, tree
+    t_all = time.time()
+    print(f"# the nine other LM families' training on {card}")
+    print("# (a) one driver step, card against CPU from the same weights:")
+    def driver_args(arch, dtype_name="float32"):
+        return train.parse_args([
+            "--arch", arch, "--batch", str(LM_TRAIN_BATCH), "--seq",
+            str(LM_TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--dtype",
+            dtype_name, "--device", "cuda"])
+
+    worst = 0.0
+    for a, *_ in LM_TRAIN:
+        ocfg = train.adamw_config(driver_args(a))
+        rel, c = train_step_check(f"{a}, reduced", configs.reduced(
+            configs.get_config(a)), ocfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+        no_launches(c, f"{a} train step, reduced")
+        worst = max(worst, rel)
+    arch, layers, Bw, Tw = LM_TRAIN_WIDTH_CHECK
+    width_rel, c = train_step_check(
+        f"{arch}, published width cut to {layers} layer",
+        lm_config(arch, layers), train.adamw_config(driver_args(arch)),
+        Bw, Tw, dev)
+    no_launches(c, f"{arch} train step, published width")
+    counts, summary = {}, {}
+    toks = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    for arch, layers, dtype_name in LM_TRAIN:
+        t0 = time.time()
+        full = configs.get_config(arch)
+        cfg = lm_config(arch, layers)
+        dtype = getattr(torch, dtype_name)
+        args = driver_args(arch, dtype_name)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if layers is None and dtype_name == "float32":
+            cfg, state, step_fn, _ = train.setup(args)
+            how = "launch/train.py's setup"
+        else:
+            ocfg = dataclasses.replace(train.adamw_config(args),
+                                       state_dtype=dtype)
+            state = train_loop.init_train_state(
+                cfg, torch.Generator(dev).manual_seed(0), dtype=dtype,
+                opt_cfg=ocfg, device=dev)
+            step_fn = train_loop.make_train_step(cfg, opt_cfg=ocfg)
+            how = "train_loop with the driver's AdamW" + (
+                f" (state_dtype {dtype_name})" if dtype_name != "float32"
+                else "")
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for _, t in tree.leaves(state.params))
+        need, entry = train_state_bytes(state.params, dtype)
+        cut = "published depth" if layers is None else (
+            f"CUT to {layers} of {full.n_layers} layers")
+        fits_one_more = layers is not None and \
+            need + entry <= LM_TRAIN_STATE_BYTES
+        print(f"# {arch} training ({how}): {cut}, d_model {cfg.d_model}, "
+              f"vocab {cfg.vocab}; {n_par} parameters in {dtype_name}, "
+              f"params + grads + m + v {need / 1e9:.3f} GB (one more "
+              f"{'pair' if cfg.layer_pattern == 'alt_local_global' else 'layer'}"
+              f": {(need + entry) / 1e9:.3f} GB, budget "
+              f"{LM_TRAIN_STATE_BYTES / 1e9:.0f} GB); set up in "
+              f"{time.time() - t0:.1f}s")
+        check(need <= LM_TRAIN_STATE_BYTES and not fits_one_more,
+              f"{arch}: {need / 1e9:.3f} GB of state is not the deepest "
+              f"cut under {LM_TRAIN_STATE_BYTES / 1e9:.0f} GB")
+        first = train.synthetic_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, 0,
+                                      device=dev)
+        ids = first["tokens"][0, :2] if "tokens" in first else \
+            torch.arange(2, device=dev)
+        probes = {k: train_probe(state.params, k, ids).clone()
+                  for k in train_probe_keys(state.params)}
+        del first
+        rows, c_all = [], {}
+        for step in range(TRAIN_STEPS):
+            batch = train.synthetic_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                          step, device=dev)
+            kcuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            c = kcuda.launch_counts()
+            c_all = {k: c_all.get(k, 0) + v for k, v in c.items()}
+            gn = float(metrics["grad_norm"])
+            rows.append((loss, gn, dt))
+            print(f"  step {step}: loss {loss:.4f} gnorm {gn:.4f} lr "
+                  f"{float(metrics['lr']):.3e} {dt * 1e3:.1f} ms "
+                  f"({toks / dt:.0f} tok/s)")
+            check(np.isfinite(loss) and np.isfinite(gn),
+                  f"{arch} training step {step}: loss {loss}, gnorm {gn}")
+            del batch, metrics
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        no_launches(c_all, f"{arch} training")
+        counts[f"{arch} train step"] = c_all
+        changed = {k: not torch.equal(v, train_probe(state.params, k, ids))
+                   for k, v in probes.items()}
+        check(all(changed.values()), f"{arch}: params unchanged after "
+              f"training: {changed}")
+        ms = 1e3 * statistics.mean(r[2] for r in rows[1:])
+        batch = train.synthetic_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                      TRAIN_STEPS, device=dev)
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t1) * 1e3
+        items = device_items(prof)
+        busy = sum(t for _, t in items)
+        idle = 100 - 100 * busy / prof_wall
+        del state, metrics, batch, prof, probes
+        torch.cuda.empty_cache()
+        summary[arch] = (
+            f"training {cut} ({n_par} parameters, {dtype_name}, state "
+            f"{need / 1e9:.3f} GB): {ms:.1f} ms a step mean of steps "
+            f"1-{TRAIN_STEPS - 1} ({toks / (ms / 1e3):.0f} tokens/s, "
+            f"batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, remat dots), step 0 "
+            f"{rows[0][2] * 1e3:.1f} ms, peak {peak / 1e9:.3f} GB, loss "
+            f"{rows[0][0]:.4f} -> {rows[-1][0]:.4f}; a profiled step "
+            f"{prof_wall:.1f} ms wall, device busy {busy:.1f} ms (idle "
+            f"{idle:.1f}%, {len(items)} device activities); params changed "
+            f"in {', '.join(changed)}; 0 kernel launches")
+        print(f"# {arch} on {card}: {summary[arch]}")
+        for name, t in top_items(items):
+            print(f"    {t:9.3f} ms  {name[:100]}")
+        print(f"# {arch} training: {time.time() - t0:.1f}s")
+    summary["card against CPU"] = (
+        f"a step at reduced(...) of all nine within rel {worst:.3e}, "
+        f"{LM_TRAIN_WIDTH_CHECK[0]} at its published width cut to "
+        f"{LM_TRAIN_WIDTH_CHECK[1]} layer rel {width_rel:.3e} (tolerance "
+        f"{TRAIN_TOL})")
+    print(f"# LM training phase: {time.time() - t_all:.1f}s")
+    return counts, summary
+
+
 # the LM serving paths: the seven GQA families (dense x5, hybrid,
 # encdec), then the moe pair
 LM_SLOTS = 32768                         # decode_32k's context
@@ -2505,15 +2746,19 @@ LM_DECODE_PROMPT, LM_DECODE_TOKENS = 16, 32
 LM_MARGIN = 6e9                          # bytes kept free for activations
 # (arch, layers: None for the published depth, prefill shapes to try in
 # order (the first whose reckoned peak fits runs), decode batch wanted)
+# gemma2-9b, h2o-danube3-4b, hymba-1.5b and deepseek-moe-16b are cut in
+# depth for the smoke's time limit (at their published depth the whole
+# smoke ran 1,152.6 s of 1,200 on an H100 80GB HBM3 at 700 W); the
+# others' bf16 weights do not fit one card
 LM_SERVE = (
-    ("gemma2_9b", None, ((1, 32768), (1, 16384)), 8),
-    ("h2o_danube3_4b", None, ((1, 32768),), 128),
-    ("hymba_1_5b", None, ((1, 2048),), 128),
+    ("gemma2_9b", 14, ((1, 32768), (1, 16384)), 8),
+    ("h2o_danube3_4b", 8, ((1, 32768),), 128),
+    ("hymba_1_5b", 8, ((1, 2048),), 128),
     ("whisper_small", None, ((8, 448),), 8),
     ("llama3_405b", 2, ((1, 4096),), 8),
     ("qwen2_72b", 2, ((1, 4096),), 8),
     ("qwen2_vl_72b", 2, ((1, 4096),), 8),
-    ("deepseek_moe_16b", None, ((1, 32768), (1, 16384)), 8),
+    ("deepseek_moe_16b", 6, ((1, 32768), (1, 16384)), 8),
     ("deepseek_v2_236b", 2, ((1, 4096),), 8),
 )
 LM_CHECK_BATCH, LM_CHECK_PROMPT = 2, 64  # decode vs forward, f32, 2 layers
@@ -2927,10 +3172,11 @@ def lm_phase(dev, card):
     """Phase 14: the LM serving paths on the card (``LM_SERVE``): the
     seven GQA families, then the moe pair, each model from
     ``init_params`` in bf16 (``torch.Generator`` seed 0, on the card) at
-    its published width (gemma2-9b, h2o-danube3-4b, hymba-1.5b,
-    whisper-small and deepseek-moe-16b at their published depth;
-    llama3-405b, qwen2-72b, qwen2-vl-72b and deepseek-v2-236b cut to 2
-    layers: their bf16 weights do not fit one card), prefill
+    its published width and the depth ``LM_SERVE`` gives (whisper-small
+    at its published depth; gemma2-9b, h2o-danube3-4b, hymba-1.5b and
+    deepseek-moe-16b cut for the smoke's time limit; llama3-405b,
+    qwen2-72b, qwen2-vl-72b and deepseek-v2-236b cut to 2 layers: their
+    bf16 weights do not fit one card), prefill
     (``lm_prefill``) and greedy decode (``lm_decode``), then each
     config's decode against its forward in f32 at 2 layers
     (``lm_decode_check``). Returns ``(launch counts by path, the
@@ -3162,6 +3408,10 @@ def main(argv=None) -> int:
     counts.update(tcounts)
     wkv6_row.update(train_fields)
 
+    # -- the nine other LM families' training at their published width
+    tcounts, lm_train = lm_train_phase(dev, card)
+    counts.update(tcounts)
+
     # -- the LM serving paths (the GQA families, the moe pair): prefill
     # and decode
     lcounts, lm = lm_phase(dev, card)
@@ -3192,6 +3442,8 @@ def main(argv=None) -> int:
         f"{path} {v}" for path, v in rwkv.items()))
     for arch, v in lm.items():
         print(f"# {arch} on {card}: {v}")
+    for arch, v in lm_train.items():
+        print(f"# {arch} training on {card}: {v}")
     print(f"# smoke finished in {time.time()-t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 ``get_config(name)`` returns the exact published config;
 ``reduced(cfg)`` shrinks it for CPU smoke tests (same family/topology,
 small widths). A copy of the JAX package's registry (data only); every
-config serves in the port, and ``rwkv6_3b`` alone trains (ROADMAP A13c).
+config serves and trains in the port.
 """
 from __future__ import annotations
 

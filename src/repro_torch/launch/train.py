@@ -4,15 +4,16 @@ The port of the JAX package's ``launch/train.py`` on one device (the
 card unless ``--device cpu``): builds the train state, restores the
 newest checkpoint if there is one, installs the preemption handler, and
 train-loops with periodic atomic checkpoints and straggler heartbeats.
-Only the ssm family (rwkv6) trains in the port; another ``--arch``
-raises ``NotImplementedError`` (the other nine configs serve, but their
-training is ROADMAP A13c).
+Every config of ``configs.ARCHS`` trains: the synthetic batch carries
+whisper's ``frames`` and qwen2-vl's ``embeds`` as the reference's does.
 ``--mesh`` other than one device is ROADMAP A11 (sharding is the
-multi-GPU slice) and raises.
+multi-GPU slice) and raises. At a published width the state must fit
+the card (params, grads, m and v: 16 bytes a parameter in float32);
+``chip_smoke.py`` cuts the depth of those that do not.
 
-    python -m repro_torch.launch.train --arch rwkv6-3b        # on the card
-    python -m repro_torch.launch.train --arch rwkv6-3b --reduced \\
+    python -m repro_torch.launch.train --arch gemma2-9b --reduced \\
         --device cpu --steps 3 --ckpt-dir ckpt               # on the host
+    python -m repro_torch.launch.train --arch rwkv6-3b        # on the card
 """
 from __future__ import annotations
 
@@ -33,11 +34,22 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def synthetic_batch(cfg, B: int, S: int, step: int, seed: int = 0,
                     device: str | torch.device = "cpu") -> dict:
-    """The reference's synthetic batch: tokens and labels uniform in
-    [1, vocab), drawn with numpy from ``seed + step``."""
+    """The reference's synthetic batch, drawn with numpy from ``seed +
+    step`` in its order: tokens and labels uniform in [1, vocab); the
+    encdec family's ``frames [B, enc_seq, d_model]`` and the vision
+    frontend's ``embeds [B, S, d_model]`` standard normal in bfloat16,
+    the latter in place of ``tokens``."""
     rng = np.random.default_rng(seed + step)
-    return {k: torch.from_numpy(rng.integers(1, cfg.vocab, (B, S))).to(
-        device) for k in ("tokens", "labels")}
+    batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab, (B, S)))
+             for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.enc_seq, cfg.d_model))).to(torch.bfloat16)
+    if cfg.frontend == "vision":
+        batch["embeds"] = torch.from_numpy(rng.normal(
+            size=(B, S, cfg.d_model))).to(torch.bfloat16)
+        batch.pop("tokens")
+    return {k: v.to(device) for k, v in batch.items()}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -59,6 +71,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def adamw_config(args: argparse.Namespace) -> opt.AdamWConfig:
+    """The reference driver's optimizer: ``--lr``, a warmup of 10 steps,
+    cosine decay over ``max(--steps, 100)``."""
+    return opt.AdamWConfig(lr=args.lr, warmup_steps=10,
+                           decay_steps=max(args.steps, 100))
+
+
 def setup(args: argparse.Namespace):
     """``(cfg, state, step_fn, start_step)``: the train state on the
     device (restored from ``--ckpt-dir``'s newest checkpoint when there
@@ -66,18 +85,13 @@ def setup(args: argparse.Namespace):
     cfg = configs.get_config(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port trains the ssm family "
-            "(rwkv6) only; training the other families is ROADMAP A13c")
     if args.mesh not in ("auto", "1x1"):
         d, m = (int(x) for x in args.mesh.split("x"))
         raise NotImplementedError(
             f"--mesh {d}x{m}: the port trains on one device; sharding "
             "over a mesh is ROADMAP A11")
     dev = resolve_device(args.device)
-    ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=10,
-                           decay_steps=max(args.steps, 100))
+    ocfg = adamw_config(args)
     state = train_loop.init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(0),
         dtype=DTYPES[args.dtype], opt_cfg=ocfg, device=dev)

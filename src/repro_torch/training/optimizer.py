@@ -5,11 +5,13 @@ operations kept, so the same float32 inputs give the same float32
 results up to the last ulp of an elementary function (the schedule's
 ``cos``; ATen's CPU ``sqrt``, which is not always correctly rounded).
 ``state_dtype=torch.bfloat16`` halves m and v; gradient accumulation
-lives in ``train_loop``. ``apply_updates`` walks the tree leaf by leaf,
-frees each leaf's temporaries before the next (at rwkv6-3b's full width
-one leaf, ``wck``, is 2.94 GB in float32) and writes the new values into
-the state's own tensors, so a step holds params, m and v once (where
-the JAX step, jitted, would donate its buffers).
+lives in ``train_loop``. ``apply_updates`` walks the tree leaf by leaf
+and each leaf in slices of ``SLICE`` of its flattened elements, writing
+the new values into the state's own tensors: a step holds params, m and
+v once (where the JAX step, jitted, would donate its buffers), and its
+float32 temporaries are a few slices, not a few leaves (llama3-405b's
+``embed`` is 2.10 B elements: ~42 GB of temporaries whole, ~340 MB a
+slice). The expressions are elementwise, so slicing leaves every bit.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.training import tree
 
 F32 = torch.float32
+SLICE = 1 << 24         # elements of a leaf updated (and normed) at a time
 
 
 class OptState(NamedTuple):
@@ -66,9 +69,17 @@ def init_opt_state(cfg: AdamWConfig, params: Any) -> OptState:
             p.shape, dtype=cfg.state_dtype, device=p.device)))
 
 
+def _slices(x: torch.Tensor):
+    """Views of ``SLICE`` consecutive elements of ``x`` (contiguous)."""
+    return x.view(-1).split(SLICE)
+
+
 def global_norm(t: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for _, x in tree.leaves(t)))
+    """The square root of every leaf's sum of squares in float32, a leaf
+    longer than ``SLICE`` summed slice by slice (its float32 copy and
+    square would otherwise be whole-leaf temporaries)."""
+    return torch.sqrt(sum(torch.sum(torch.square(s.to(F32)))
+                          for _, x in tree.leaves(t) for s in _slices(x)))
 
 
 def _upd(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2):
@@ -99,9 +110,11 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``.
 
     In place: the new params, m and v are written into the given
-    tensors, which come back in the same trees (``state.step`` is
-    replaced), and each leaf of ``grads`` (a dict tree) is dropped once
-    it is used, so a step holds params, m, v and grads once."""
+    tensors (contiguous, as ``init_params`` and ``init_opt_state`` make
+    them), slice by slice, which come back in the same trees
+    (``state.step`` is replaced), and each leaf of ``grads`` (a dict
+    tree) is dropped once it is used, so a step holds params, m, v and
+    grads once."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
         if cfg.clip_norm else 1.0
@@ -113,12 +126,14 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
     flat_v = dict(tree.leaves(state.v))
     with torch.no_grad():
         for key, p in tree.leaves(params):
-            newp, m32, v32 = _upd(cfg, p, _pop(grads, key), flat_m[key],
-                                  flat_v[key], scale, lr, bc1, bc2)
-            p.copy_(newp)
-            flat_m[key].copy_(m32)
-            flat_v[key].copy_(v32)
-            del newp, m32, v32
+            for ps, gs, ms, vs in zip(*map(_slices, (
+                    p, _pop(grads, key), flat_m[key], flat_v[key]))):
+                newp, m32, v32 = _upd(cfg, ps, gs, ms, vs, scale, lr, bc1,
+                                      bc2)
+                ps.copy_(newp)
+                ms.copy_(m32)
+                vs.copy_(v32)
+                del newp, m32, v32
     return params, OptState(step=step, m=state.m, v=state.v), \
         {"grad_norm": gnorm, "lr": lr}
 

@@ -1,10 +1,12 @@
 """Train-step factory: loss → grads (with microbatch accumulation) → AdamW.
 
-The port of the JAX package's ``training/train_loop.py``. The step runs
-eagerly on tensors: autograd through ``transformer.loss_fn`` (each layer
-checkpointed by ``remat_policy``; on the card ``wkv6``'s forward is the
-CUDA kernel and its backward the plain scan recomputed), then
-``optimizer.apply_updates`` in place. A step therefore updates the
+The port of the JAX package's ``training/train_loop.py``, for every
+config of ``configs.ARCHS``. The step runs eagerly on tensors: autograd
+through ``transformer.loss_fn`` (each layer of every stack checkpointed
+by ``remat_policy``; on the card rwkv6's ``wkv6`` forward is the CUDA
+kernel and its backward the plain scan recomputed, while the other
+families are plain PyTorch and launch no kernel of ``kernels/csrc``),
+then ``optimizer.apply_updates`` in place. A step therefore updates the
 state it is given and returns it (the JAX step, jitted with donated
 buffers, would reuse them too): clone a state's tensors to keep it.
 """
@@ -36,36 +38,55 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator, *,
     return TrainState(params=params, opt=opt.init_opt_state(ocfg, params))
 
 
+# the stacks of per-layer params (``[L, ...]`` leaves at any nesting):
+# every family's decoder ``layers`` (gemma2: its local/global pairs),
+# the moe family's ``dense_layers``, whisper's ``enc_layers``
+STACKS = ("layers", "dense_layers", "enc_layers")
+
+
+def _stacked(key: str) -> bool:
+    return key.split("/", 1)[0] in STACKS
+
+
 def _loss_and_grads(cfg, params, batch, remat_policy):
     """``(loss, grads)``: grads a tree like ``params``, each leaf in its
-    param's dtype.
+    param's dtype and contiguous.
 
-    Each layer's slice of a stacked ``[L, ...]`` param is a leaf of its
-    own, so autograd hands back one gradient a layer and they are stacked
-    once, as the reference's scan stacks them. (Through ``v[i]`` of the
-    stack, every layer's backward would zero-fill a whole ``[L, ...]``
-    gradient and add it to the others: 2.94 GB a layer for ``wck`` at
-    rwkv6-3b's width.)"""
-    top = [k for k in params if k != "layers"]
-    stacked = list(params["layers"])
-    live = {k: params[k].detach().requires_grad_(True) for k in top}
-    live["layers"] = {k: [p.detach().requires_grad_(True)
-                          for p in params["layers"][k]] for k in stacked}
-    leaves = [live[k] for k in top] + \
-        [p for k in stacked for p in live["layers"][k]]
+    Each layer's slice of a stacked ``[L, ...]`` param (every leaf of
+    ``STACKS``) is a leaf of its own, so autograd hands back one gradient
+    a layer and they are stacked once, as the reference's scan stacks
+    them. (Through ``v[i]`` of the stack, every layer's backward would
+    zero-fill a whole ``[L, ...]`` gradient and add it to the others:
+    2.94 GB a layer for ``wck`` at rwkv6-3b's width.) A param the loss
+    does not reach (qwen2-vl's ``embed`` beside ``embeds``, whisper's
+    cross-attention biases) gets a zero gradient, as ``jax.grad`` gives
+    it, so AdamW moves it by weight decay alone as the reference does."""
+    def live_leaf(key, p):
+        if _stacked(key):
+            return [x.detach().requires_grad_(True) for x in p]
+        return p.detach().requires_grad_(True)
+
+    live = tree.rebuild(params, live_leaf)
+    leaves = []
+    for key, leaf in tree.leaves(live):
+        leaves.extend(leaf if _stacked(key) else [leaf])
     with torch.enable_grad():
         loss = tf.loss_fn(cfg, live, batch, remat_policy=remat_policy)
-        grads = list(torch.autograd.grad(loss, leaves))
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True))
     del live, leaves
-    out = {k: grads[i] for i, k in enumerate(top)}
-    out["layers"] = {}
-    at = len(top)
-    for k in stacked:
-        n = params["layers"][k].shape[0]
-        out["layers"][k] = torch.stack(grads[at:at + n])
-        grads[at:at + n] = [None] * n
-        at += n
-    return loss.detach(), out
+    flat, at = {}, 0
+    for key, p in tree.leaves(params):
+        if _stacked(key):
+            n = p.shape[0]
+            flat[key] = torch.stack(grads[at:at + n])
+            grads[at:at + n] = [None] * n
+            at += n
+        else:       # a tied embedding's holds the head's transposed part
+            flat[key] = grads[at].contiguous()
+            grads[at] = None
+            at += 1
+    return loss.detach(), tree.rebuild(params, lambda k, _: flat.pop(k))
 
 
 def make_train_step(cfg: ModelConfig, *,

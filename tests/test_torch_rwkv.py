@@ -155,20 +155,6 @@ def test_entry_points_default_to_the_card(world, make):
             make(world["cfg"])
 
 
-@pytest.mark.parametrize("arch", ["llama3_405b", "qwen2_72b", "qwen2_vl_72b",
-                                  "gemma2_9b", "h2o_danube3_4b",
-                                  "hymba_1_5b", "whisper_small",
-                                  "deepseek_moe_16b", "deepseek_v2_236b"])
-def test_training_refuses_serving_families(arch):
-    """The nine other configs serve but do not train yet:
-    ``launch/train.setup`` raises naming ROADMAP A13 (A13c)."""
-    from repro_torch.launch import train
-    args = train.parse_args(["--arch", arch, "--reduced", "--device", "cpu",
-                             "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="A13c"):
-        train.setup(args)
-
-
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------

@@ -51,6 +51,9 @@ from repro.training import compression as jcomp  # noqa: E402
 from repro.training import optimizer as jopt  # noqa: E402
 from repro.training import train_loop as jloop  # noqa: E402
 
+from helpers.torch_train import (  # noqa: E402
+    adamw_configs as _tiny_ocfg, flat_ref as _flat_ref, np_bits as _np,
+    opt_inputs, within_ulp as _within_ulp)
 from repro_torch import bridge, configs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -67,22 +70,6 @@ B, S = 2, 8
 def _t(a, dtype=None):
     t = torch.from_numpy(np.array(a))
     return t if dtype is None else t.to(dtype)
-
-
-def _np(x):
-    if torch.is_tensor(x):
-        x = x.detach()
-        if x.dtype == torch.bfloat16:
-            return x.view(torch.int16).numpy()
-        return x.numpy()
-    a = np.asarray(x)
-    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
-
-
-def _flat_ref(t):
-    return {"/".join(str(getattr(p, "key", getattr(p, "name", p)))
-                     for p in path): leaf
-            for path, leaf in jax.tree_util.tree_leaves_with_path(t)}
 
 
 def _batch(cfg, seed, b=B, s=S, mask=False):
@@ -115,13 +102,6 @@ def world():
     jp = jtf.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     return dict(jcfg=jcfg, cfg=cfg, jp=jp,
                 tp=bridge.lm_params_from_reference(jp, "cpu"))
-
-
-def _tiny_ocfg(**kw):
-    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
-    return opt.AdamWConfig(**kw), jopt.AdamWConfig(**{
-        k: jdt.get(v, v) if k == "state_dtype" else v
-        for k, v in kw.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -234,42 +214,6 @@ def test_wkv6_cpu_gradients_match_reference():
 # the optimizer
 # ---------------------------------------------------------------------------
 
-def _opt_inputs(world, seed, state_dtype):
-    """Params, grads and an AdamW state at step 3 (m, v random; v > 0),
-    in both packages' trees. The gradients are multiples of 2^-9 up to 6
-    of them: with ~2·10^5 of them every square and partial sum of the
-    global norm is an integer number of 2^-18 below 2^24 of them, exact
-    in float32 in any order, so both norms (and clip scales) are the one
-    correctly rounded sqrt of the same sum."""
-    rng = np.random.default_rng(seed)
-    jp = world["jp"]
-    g = jax.tree.map(lambda a: jnp.asarray(
-        (rng.integers(-6, 7, a.shape) * 2.0 ** -9).astype(np.float32)), jp)
-    m = jax.tree.map(lambda a: jnp.asarray(
-        rng.normal(0, 0.01, a.shape).astype(np.float32), state_dtype), jp)
-    v = jax.tree.map(lambda a: jnp.asarray(
-        rng.uniform(0, 1e-3, a.shape).astype(np.float32), state_dtype), jp)
-    jstate = jopt.OptState(step=jnp.asarray(3, jnp.int32), m=m, v=v)
-    tstate = opt.OptState(step=_t(np.int32(3)),
-                          m=bridge._lm_tree(m, torch.device("cpu")),
-                          v=bridge._lm_tree(v, torch.device("cpu")))
-    return (jp, g, jstate), (world["tp"], bridge._lm_tree(
-        g, torch.device("cpu")), tstate)
-
-
-def _within_ulp(got, want, what, slack=0.0):
-    """``got`` within 1 ulp of ``want`` (float32) plus ``slack``
-    (absolute, elementwise); bf16 bits within 1 step."""
-    got, want = _np(got), _np(want)
-    if want.dtype == np.int16:              # bf16 bits: 1 ulp apart
-        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
-        assert int(d.max()) <= 1, what
-        return
-    err = np.abs(got.astype(np.float64) - want)
-    tol = np.spacing(np.abs(want)).astype(np.float64) + slack
-    assert (err <= tol).all(), (what, float((err / tol).max()))
-
-
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("clip", [0.0, 0.5])
 def test_apply_updates_matches_reference(world, state_dtype, clip):
@@ -280,8 +224,8 @@ def test_apply_updates_matches_reference(world, state_dtype, clip):
     ocfg, jocfg = _tiny_ocfg(clip_norm=clip, warmup_steps=2,
                              decay_steps=50,
                              state_dtype=getattr(torch, state_dtype))
-    (jp, jg, js), (tp, tg, ts) = _opt_inputs(
-        world, 21, getattr(jnp, state_dtype))
+    jp, tp = world["jp"], world["tp"]
+    (jg, js), (tg, ts) = opt_inputs(jp, 21, getattr(jnp, state_dtype))
     wp, ws, wm = jopt.apply_updates(jocfg, jp, jg, js)
     tp = _clone(tp)
     gp, gs, gm = opt.apply_updates(ocfg, tp, tg, ts)
@@ -673,7 +617,6 @@ def test_launch_train_synthetic_batch_matches_reference(world):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--mesh", "2x1"], NotImplementedError, "A11"),
-    (["--arch", "llama3_405b"], NotImplementedError, "A13"),
 ])
 def test_launch_train_refuses(extra, error, match):
     argv = ["--arch", "rwkv6-3b", "--reduced", "--device", "cpu",
