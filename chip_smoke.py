@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py                  # the deployment below
     python3 chip_smoke.py --points 100000  # a cut (printed as such)
     python3 chip_smoke.py --large-points 4000000   # a cut of phase 9
+    python3 chip_smoke.py --engine-only    # phases 1-3, 7b and 7c alone
 
 Phases, each failing the run (non-zero exit) on its own error:
 
@@ -70,6 +71,22 @@ Phases, each failing the run (non-zero exit) on its own error:
    left, and per served batch exactly one ``traverse_compact``, two
    ``leaf_refine``, one ``mlp_predict_compact`` and one ``forest_infer``
    (plus one ``delta_probe`` in the mixed stream), no ``traverse_fused``;
+7c. the same three streams through the engine over a 1x2 mesh
+   (``launch.mesh``, data 1 x model 2: the reference driver's mesh at
+   two devices), two ranks of this script sharing ``cuda:0`` over
+   ``gloo`` (``--engine-mesh-rank``, the environment
+   ``torch.distributed.run`` gives its workers, a free port on
+   127.0.0.1), each serving its shard of the index saved once by this
+   process, the mixed stream through ``EngineFreshServer`` over the
+   mesh; gates: both ranks exit 0 within ``MESH_TIMEOUT_S``,
+   ``n_results`` equal row for row to phase 7b's on every stream and
+   rank, no ``r_truncated`` left, the launches a step of phase 7b on
+   each rank, the ranks' hybrids (tree, bank, ``cell_ok``) equal after
+   each maintenance step of the mixed stream; per-rank launches and rates printed beside the card (their
+   collectives cross the host: no multi-GPU deployment's rate); the ranks
+   serve while this process fits phase 8's forest bank on the host (one
+   timed repetition of each stream, cut from 7b's 3, for the smoke's time
+   limit);
 8. the forest bank (``--classifier forest``) at the deployment:
    ``fit_airtree(kind="forest")`` on the same tree and labelled workload,
    the range stream in Hilbert order through it (gates: 0 mismatches
@@ -142,8 +159,9 @@ Phases, each failing the run (non-zero exit) on its own error:
    same float32 weights at each config's ``reduced(...)`` and at
    h2o-danube3-4b's published width cut to one layer (loss and grad
    norm within 1e-4 relative); then each config at its published width
-   (``LM_TRAIN``: whisper-small and hymba-1.5b at their published
-   depth through ``launch/train.py``'s ``setup``, the others cut to the
+   (``LM_TRAIN``: whisper-small at its published depth through
+   ``launch/train.py``'s ``setup``, hymba-1.5b cut to 8 of 32 layers for
+   the smoke's time limit, the others cut to the
    deepest depth whose params, grads, m and v fit 60 GB, llama3-405b
    and deepseek-v2-236b with bf16 params and AdamW state), 3 steps of
    the driver's defaults (batch 8 x seq 128, AdamW, remat "dots", seed
@@ -195,7 +213,9 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1591,7 +1611,8 @@ def engine_phase(idx, base_argv, inserts, dev, range_report, mixed_report):
     equal row for row to the hybrid stream's and no ``r_truncated`` left;
     the mixed stream through ``EngineFreshServer`` with ``mixed_stream``'s
     inserts, policy and fit state, ``n_results`` equal to
-    ``FreshServer``'s. Returns ``(launch counts by path, rates)``."""
+    ``FreshServer``'s. Returns ``(launch counts by path, rates,
+    n_results by stream)``."""
     import numpy as np
     import torch
     from repro_torch.core import engine, monitor, schedule
@@ -1645,6 +1666,7 @@ def engine_phase(idx, base_argv, inserts, dev, range_report, mixed_report):
 
     rep = stream("engine range", on_tree(narrow), idx.workload.queries,
                  on_tree(wide))
+    results = {"range": rep.stats.n_results}
     mism = int((rep.stats.n_results != range_report.stats.n_results).sum())
     print(f"# engine range: {mism} / {rep.n_queries} n_results mismatches "
           "vs the hybrid range stream")
@@ -1654,6 +1676,7 @@ def engine_phase(idx, base_argv, inserts, dev, range_report, mixed_report):
     q_pt, hybrid_point = serve.point_stream(idx.hybrid, idx.points, pargs)
     want = hybrid_point().stats.n_results
     rep = stream("engine point", on_tree(point), q_pt)
+    results["point"] = rep.stats.n_results
     mism = int((rep.stats.n_results != want).sum())
     print(f"# engine point: {mism} / {rep.n_queries} n_results mismatches "
           "vs the hybrid point stream")
@@ -1708,29 +1731,357 @@ def engine_phase(idx, base_argv, inserts, dev, range_report, mixed_report):
     check(not mixed.stats.r_truncated.any(), "engine mixed: rows still "
           "r_truncated")
     check(mism == 0, f"engine mixed: {mism} n_results mismatches")
-    return counts, rates
+    results["mixed"] = mixed.stats.n_results
+    return counts, rates, results
 
 
-def forest_phase(idx, base_argv, dev, card):
-    """Phase 8: the forest bank at the deployment — fit, the range stream
-    through it with its gates, the dense path of forest_infer_cells and
-    the kernel's checks. Returns ``(launch counts by path, the stream's
-    summary, the kernel's JSON row)``."""
-    import dataclasses
+# phase 7c: the engine over a mesh of ranks sharing the card
+MESH_SHAPE = (1, 2)              # repro.launch.serve's mesh at 2 devices
+MESH_REPS = 1                    # timed streams a rank (engine_phase: 3)
+MESH_TIMEOUT_S = 600             # the ranks' join
+COLLECTIVE_REPS = 50             # timed collectives of each kind a rank
+
+
+def hybrid_digest(h) -> str:
+    """SHA-1 of the hybrid's tree (levels, leaf arrays), bank and
+    ``cell_ok``: what every rank of a mesh must hold alike."""
+    import hashlib
+    import torch
+    t, ait = h.tree, h.ait
+    parts = [x for lv in t.levels for x in (lv.mbrs, lv.parent)] + [
+        t.leaf_entries, t.leaf_entry_ids, t.leaf_counts, ait.cell_ok] + [
+        getattr(ait.bank, f.name) for f in dataclasses.fields(ait.bank)
+        if torch.is_tensor(getattr(ait.bank, f.name))]
+    d = hashlib.sha1()
+    for x in parts:
+        d.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return d.hexdigest()
+
+
+def engine_mesh_rank(workdir: Path) -> int:
+    """One rank of phase 7c, started by ``engine_mesh_phase`` with the
+    environment ``torch.distributed.run`` gives its workers (``env://``):
+    join the world (``launch.mesh.init_from_env``: ``cuda:0`` for both
+    ranks, ``gloo``), build the ``MESH_SHAPE`` mesh, load the index the
+    smoke built and serve the range stream (the driver's
+    ``make_serve_fns``: the two-tier steps), the point stream
+    (``point_stream``) and the mixed stream (``EngineFreshServer`` over
+    the mesh), each with the launch counts reset just before and read
+    just after; save the results under ``workdir``. Prints ``# rank r``
+    lines and a profile of one more range stream."""
+    import torch
+    from repro_torch.core import monitor, schedule
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import mesh as meshlib, serve
+    w = meshlib.init_from_env("cuda", timeout_s=120)
+    try:
+        mesh = meshlib.make_debug_mesh(*MESH_SHAPE, device=w.device)
+        job = torch.load(workdir / "index.pt", weights_only=False)
+        hyb = meshlib.to_device(job["hybrid"], w.device)
+        argv = job["argv"] + ["--sort", "hilbert", "--reps", str(MESH_REPS),
+                              "--distributed"]
+        args = serve.parse_args(argv)
+        out = dict(rank=w.rank, device=str(w.device), backend=w.backend,
+                   ranks_per_card=w.ranks_per_card)
+
+        def timed_stream(label, run):
+            kcuda.reset_launch_counts()
+            rep, dt_s = serve.timed(run, args.reps)
+            torch.cuda.synchronize()
+            out[label] = dict(
+                n_results=rep.stats.n_results,
+                r_truncated=int(rep.stats.r_truncated.sum()),
+                queries_per_s=rep.n_queries / dt_s,
+                launches=kcuda.launch_counts(),
+                steps=(1 + args.reps) * (rep.n_batches + rep.wide_batches))
+            print(f"# rank {w.rank}: mesh {label}: {rep.n_queries} queries "
+                  f"in {rep.n_batches} batches + {rep.wide_batches} wide "
+                  f"({rep.n_reserved} rows re-served), "
+                  f"{rep.n_queries / dt_s:.0f} queries/s", flush=True)
+
+        q = job["queries"]
+        bbox = schedule.workload_bbox(q)
+        narrow, wide, trunc = serve.make_serve_fns(hyb, args, mesh)
+
+        def range_run():
+            return schedule.serve_workload(
+                narrow, q, batch=args.batch, sort="hilbert", bbox=bbox,
+                wide_fn=wide, trunc_field=trunc, device=w.device)
+        timed_stream("range", range_run)
+        # every rank serves the profiled stream: a stream one rank alone
+        # served would pair its collectives with the other's next stream
+        profile_stream(f"mesh range (rank {w.rank})", range_run,
+                       out["range"]["steps"] // (1 + args.reps))
+        pargs = serve.parse_args(argv + ["--query-type", "point"])
+        timed_stream("point", serve.point_stream(hyb, job["points"], pargs,
+                                                 mesh)[1])
+
+        margs = serve.parse_args(argv + [
+            "--insert-every", "1", "--delta-cap", str(DELTA_CAP),
+            "--policy", "default", "--refit-chunk", "4",
+            "--repack-at", "0.75"])
+        server = monitor.EngineFreshServer(
+            job["points"], hyb, serve.engine_config(margs), kind="mlp",
+            mesh=mesh, delta_cap=margs.delta_cap,
+            wide_factor=margs.wide_factor, fit_state=job["fit_state"],
+            policy=monitor.DefaultPolicy(refit_chunk=margs.refit_chunk,
+                                         repack_at=margs.repack_at))
+        # the serve calls' own launches (rank 0's refit chunks launch the
+        # labelling walk too)
+        calls, served = [0], dict.fromkeys(kcuda.KERNELS, 0)
+        for name in ("serve", "serve_wide"):
+            def call(qb, fn=getattr(server, name)):
+                calls[0] += 1
+                before = kcuda.launch_counts()
+                res = fn(qb)
+                for n, c in kcuda.launch_counts().items():
+                    served[n] += c - before[n]
+                return res
+            setattr(server, name, call)
+        digests, on_segment = [], server.on_segment
+
+        def noted():
+            d = on_segment()
+            digests.append(hybrid_digest(server.hybrid))
+            return d
+        server.on_segment = noted
+        kcuda.reset_launch_counts()
+        t0 = time.time()
+        mixed = schedule.serve_mixed_workload(
+            server, q, job["inserts"], batch=margs.batch, sort="hilbert",
+            bbox=bbox, insert_every=margs.insert_every,
+            repack_every=margs.repack_every)
+        torch.cuda.synchronize()
+        dt_s = time.time() - t0
+        out["mixed"] = dict(
+            n_results=mixed.stats.n_results,
+            r_truncated=int(mixed.stats.r_truncated.sum()),
+            queries_per_s=mixed.n_queries / dt_s,
+            launches=kcuda.launch_counts(), served=served, steps=calls[0],
+            digests=digests,
+            repacks=sum(d.repack for _, d in mixed.maintenance),
+            refit=sum(r.cells_refit for r in server.refits),
+            inserts=mixed.n_inserts)
+        print(f"# rank {w.rank}: mesh mixed: {mixed.n_queries} queries / "
+              f"{mixed.n_inserts} inserts in {mixed.n_segments} segments "
+              f"({calls[0]} steps), {out['mixed']['repacks']} repacks, "
+              f"{out['mixed']['refit']} cells refit, "
+              f"{mixed.n_queries / dt_s:.0f} queries/s end to end",
+              flush=True)
+        # the collectives alone, at a step's shapes (both ranks in turn)
+        ids = torch.zeros((args.batch, 16), dtype=torch.int32,
+                          device=w.device)
+        for name, fn in (("psum [B] i32", lambda: mesh.model.psum(ids[:, 0])),
+                         ("all_gather [B, 16] i32",
+                          lambda: mesh.model.all_gather(ids, 1))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(COLLECTIVE_REPS):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) * 1e3 / COLLECTIVE_REPS
+            print(f"# rank {w.rank}: one {name} over the model group: "
+                  f"{out[name]:.3f} ms (host clock, mean of "
+                  f"{COLLECTIVE_REPS}; gloo through the host)", flush=True)
+        torch.save(out, workdir / f"rank{w.rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+class MeshRun:
+    """Phase 7c's ranks, started: the index saved once (``torch.save``)
+    into a temporary directory, then ``MESH_SHAPE``'s ranks of this
+    script (``--engine-mesh-rank``) with the environment
+    ``torch.distributed.run`` gives its workers (a free port on
+    127.0.0.1), each in a session of its own. ``join`` waits for them:
+    a rank that fails or outlives ``MESH_TIMEOUT_S`` stops them all."""
+
+    def __init__(self, idx, base_argv, inserts):
+        import socket
+        import tempfile
+        import torch
+        from repro_torch.launch import mesh as meshlib
+        self.tmp = tempfile.TemporaryDirectory()
+        tmp = Path(self.tmp.name)
+        torch.save(dict(argv=base_argv, points=idx.points,
+                        hybrid=meshlib.to_device(idx.hybrid, "cpu"),
+                        fit_state=idx.report.fit_state,
+                        queries=idx.workload.queries, inserts=inserts),
+                   tmp / "index.pt")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        n = MESH_SHAPE[0] * MESH_SHAPE[1]
+        self.logs = [tmp / f"rank{r}.log" for r in range(n)]
+        self.procs = []
+        self.t0 = time.time()
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--engine-mesh-rank", str(tmp)], env=env, cwd=ROOT,
+                    stdout=log, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+
+    def join(self):
+        """``(failure or None, [(exit code, log text)], seconds, [each
+        rank's results])``; the temporary directory is removed."""
+        import torch
+        failed = None
+        try:
+            while failed is None and any(p.poll() is None
+                                         for p in self.procs):
+                if time.time() - self.t0 > MESH_TIMEOUT_S:
+                    failed = f"ranks still running after {MESH_TIMEOUT_S} s"
+                elif any(p.returncode for p in self.procs
+                         if p.poll() is not None):
+                    failed = "a rank failed"
+                else:
+                    time.sleep(0.2)
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        if failed is None and any(p.returncode for p in self.procs):
+            failed = "a rank exited non-zero"
+        wall = time.time() - self.t0
+        logs = [(p.returncode, log.read_text())
+                for p, log in zip(self.procs, self.logs)]
+        outs = [] if failed else [
+            torch.load(Path(self.tmp.name) / f"rank{r}.pt",
+                       weights_only=False) for r in range(len(self.procs))]
+        self.tmp.cleanup()
+        return failed, logs, wall, outs
+
+
+def engine_mesh_phase(run: MeshRun, card, one_rank, beside: str = ""):
+    """Phase 7c: the serving engine over ``MESH_SHAPE`` (data 1 x model
+    2, the reference driver's mesh at two devices), both ranks on
+    ``cuda:0`` over ``gloo`` (NCCL refuses two ranks on one device),
+    each (``engine_mesh_rank``) serving its shard of the index ``run``
+    saved. Joins ``run``; ``beside`` names what this process did
+    meanwhile. Gates: both ranks exit 0 within ``MESH_TIMEOUT_S``; on
+    both, ``n_results`` of the range, point and mixed streams equal row
+    for row to the one-rank engine's (``one_rank``, from
+    ``engine_phase``), no ``r_truncated`` left, the engine's launches a
+    step (``ENGINE_LAUNCHES``, plus one ``delta_probe`` in the mixed
+    stream), ``spatial_key`` launched, the mixed stream repacked and
+    refit, and the ranks' hybrids equal after each maintenance step
+    (``hybrid_digest``). Returns ``(launch counts by path, summed over the ranks; the
+    rates' text)``."""
+    failed, logs, wall, outs = run.join()
+    for r, (rc, text) in enumerate(logs):
+        print("\n".join(ln for ln in text.splitlines()
+                        if ln.startswith(("#", "    "))))
+        if failed:
+            print(f"# rank {r} exited {rc}; its log's end:\n{text[-4000:]}")
+    check(failed is None, f"engine mesh: {failed}")
+    n = len(outs)
+    print(f"# engine mesh: {n} ranks ran {wall:.1f} s (start, load, "
+          f"serve{beside})")
+    counts, rates = {}, []
+    for o in outs:
+        r = o["rank"]
+        check(o["backend"] == "gloo" and o["device"] == "cuda:0",
+              f"rank {r} on {o['device']} over {o['backend']}")
+        for label in ("range", "point", "mixed"):
+            got = o[label]
+            mism = int((got["n_results"] != one_rank[label]).sum())
+            check(mism == 0, f"engine mesh rank {r} {label}: {mism} "
+                  "n_results mismatches vs the one-rank engine")
+            check(got["r_truncated"] == 0,
+                  f"engine mesh rank {r} {label}: rows still r_truncated")
+            need = dict(ENGINE_LAUNCHES)
+            if label == "mixed":
+                need["delta_probe"] = 1
+            per = engine_launch_check(f"engine mesh rank {r} {label}",
+                                      got.get("served", got["launches"]),
+                                      got["steps"], need)
+            check(got["launches"]["spatial_key"] > 0,
+                  f"engine mesh rank {r} {label}: spatial_key never "
+                  "launched")
+            print(f"# engine mesh rank {r} {label}: 0 / "
+                  f"{got['n_results'].shape[0]} n_results mismatches vs "
+                  f"the one-rank engine, 0 rows r_truncated; launches "
+                  f"{ {k: v for k, v in got['launches'].items() if v} } "
+                  f"({got['steps']} steps; a step: {per})")
+            path = f"engine mesh {label}"
+            counts[path] = {k: counts.get(path, {}).get(k, 0) + v
+                            for k, v in got["launches"].items()}
+        m = o["mixed"]
+        check(m["inserts"] == INSERTS and m["repacks"] >= 1 and m["refit"],
+              f"engine mesh rank {r}: the mixed stream staged "
+              f"{m['inserts']} inserts, {m['repacks']} repacks, "
+              f"{m['refit']} cells refit")
+        rates.append(f"rank {r}: " + ", ".join(
+            f"{label} {o[label]['queries_per_s']:.0f} queries/s"
+            for label in ("range", "point", "mixed")))
+    digests = [o["mixed"]["digests"] for o in outs]
+    check(digests[0] and all(d == digests[0] for d in digests),
+          "engine mesh mixed: the ranks' hybrids differ after a "
+          "maintenance step")
+    print(f"# engine mesh mixed: the {n} ranks' hybrids (tree, bank, "
+          f"cell_ok) equal after each of {len(digests[0])} maintenance "
+          "steps (rank 0's refit chunks broadcast)")
+    text = "; ".join(rates)
+    print(f"# engine mesh on {card}: a {MESH_SHAPE[0]}x{MESH_SHAPE[1]} mesh "
+          f"of {n} ranks sharing one card over gloo, every collective "
+          f"through the host (no multi-GPU deployment's rate{beside}): "
+          f"{text}")
+    return counts, text
+
+
+def engines_alone(idx, args, base_argv, inserts, dev, card) -> int:
+    """``--engine-only``: the hybrid range stream and the mixed stream
+    (the one-rank engine's yardsticks), then phases 7b and 7c."""
+    from repro_torch.launch import serve
+    report, _ = serve.serve_stream(idx.hybrid, idx.workload, args)
+    _, _, mixed = mixed_stream(idx, base_argv, inserts, dev)
+    _, erates, one_rank = engine_phase(idx, base_argv, inserts, dev, report,
+                                       mixed)
+    _, mesh_rates = engine_mesh_phase(MeshRun(idx, base_argv, inserts),
+                                      card, one_rank)
+    print(f"# engine on {card}: one rank: " + ", ".join(
+        f"{k} {v}" for k, v in erates.items()) + f"; 1x2 mesh: {mesh_rates}")
+    return 0
+
+
+def forest_fit(idx, beside: str = ""):
+    """Phase 8's fit: ``fit_airtree(kind="forest")`` on the deployment's
+    tree and labels (host trees, exact-fit evaluation on the card);
+    ``beside`` names what ran meanwhile. Returns ``(hybrid, report)``."""
     import torch
     from repro_torch.core import build
-    from repro_torch.kernels import cuda as kcuda
-    from repro_torch.launch import serve
     t0 = time.time()
     hyb, rep = build.fit_airtree(idx.dtree, idx.workload, kind="forest",
                                  verbose=True)
     torch.cuda.synchronize()
-    fit_s = time.time() - t0
     print(f"# AI+R (forest): grid {rep.grid_size}², exact-fit "
           f"{rep.exact_fit:.3f} ({int(rep.cell_fit.sum())}/"
           f"{rep.cell_fit.size} cells exact), router test acc "
           f"{rep.router.test_acc:.3f}, models {rep.model_bytes/1e6:.2f} MB, "
-          f"fit {fit_s:.1f}s (host trees + exact-fit evaluation on the card)")
+          f"fit {time.time() - t0:.1f}s (host trees + exact-fit evaluation "
+          f"on the card{beside})")
+    return hyb, rep
+
+
+def forest_phase(idx, forest, base_argv, dev, card):
+    """Phase 8: the forest bank at the deployment (``forest``:
+    ``forest_fit``'s hybrid and report) — the range stream through it
+    with its gates, the dense path of forest_infer_cells and the kernel's
+    checks. Returns ``(launch counts by path, the stream's summary, the
+    kernel's JSON row)``."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import serve
+    hyb, rep = forest
     fidx = dataclasses.replace(idx, hybrid=hyb, report=rep)
     fargs = serve.parse_args(base_argv + [
         "--classifier", "forest", "--sort", "hilbert", "--reps", "1"])
@@ -2531,7 +2882,7 @@ def train_phase(dev, card):
 # the dtype of params and of AdamW's m and v)
 LM_TRAIN = (
     ("whisper_small", None, "float32"),
-    ("hymba_1_5b", None, "float32"),
+    ("hymba_1_5b", 8, "float32"),                 # LM_TRAIN_TIME_CUT
     ("h2o_danube3_4b", 22, "float32"),
     ("gemma2_9b", 14, "float32"),                 # 7 of 21 local/global pairs
     ("deepseek_moe_16b", 6, "float32"),           # 1 dense + 5 of 27 MoE
@@ -2540,6 +2891,9 @@ LM_TRAIN = (
     ("llama3_405b", 1, "bfloat16"),               # the reference's 100B+ state
     ("deepseek_v2_236b", 2, "bfloat16"),          # 1 dense + 1 of 59 MoE
 )
+# depths cut for the smoke's time limit, not for memory (hymba's per-token
+# Mamba loop makes its published-depth step the phase's longest)
+LM_TRAIN_TIME_CUT = ("hymba_1_5b",)
 LM_TRAIN_STATE_BYTES = 60e9     # params + grads + m + v, beside activations
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128            # the driver's defaults
 # card against CPU at the published width: (arch, layers, batch, seq)
@@ -2652,9 +3006,11 @@ def lm_train_phase(dev, card):
         torch.cuda.synchronize()
         n_par = sum(t.numel() for _, t in tree.leaves(state.params))
         need, entry = train_state_bytes(state.params, dtype)
+        time_cut = arch in LM_TRAIN_TIME_CUT
         cut = "published depth" if layers is None else (
-            f"CUT to {layers} of {full.n_layers} layers")
-        fits_one_more = layers is not None and \
+            f"CUT to {layers} of {full.n_layers} layers"
+            + (" for the smoke's time limit" if time_cut else ""))
+        fits_one_more = layers is not None and not time_cut and \
             need + entry <= LM_TRAIN_STATE_BYTES
         print(f"# {arch} training ({how}): {cut}, d_model {cfg.d_model}, "
               f"vocab {cfg.vocab}; {n_par} parameters in {dtype_name}, "
@@ -3242,6 +3598,12 @@ def main(argv=None) -> int:
     p.add_argument("--large-points", type=int, default=LARGE_POINTS,
                    help="the large index's size (a cut below "
                         f"{LARGE_POINTS} is printed as such)")
+    p.add_argument("--engine-only", action="store_true",
+                   help="stop after the engines (phases 1-3, the range "
+                        "and mixed streams, 7b and 7c); prints no "
+                        "contract line")
+    p.add_argument("--engine-mesh-rank", default=None,
+                   help=argparse.SUPPRESS)   # a rank of phase 7c
     opts = p.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3254,6 +3616,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(SRC))
+    if opts.engine_mesh_rank:
+        return engine_mesh_rank(Path(opts.engine_mesh_rank))
     from repro_torch import resolve_device
     from repro_torch.kernels import cuda as kcuda
     from repro_torch.launch import serve
@@ -3287,6 +3651,8 @@ def main(argv=None) -> int:
     print(f"# index built in {time.time()-t0:.1f}s")
 
     inserts = make_inserts()
+    if opts.engine_only:
+        return engines_alone(idx, args, base_argv, inserts, dev, card)
     print("# kernels vs plain versions on the card:")
     rows = kernel_checks(idx, args, base_argv, dev, inserts)
 
@@ -3367,12 +3733,22 @@ def main(argv=None) -> int:
         idx, base_argv, inserts, dev)
 
     # -- the serving engine at one rank: range, point and mixed streams
-    ecounts, erates = engine_phase(idx, base_argv, inserts, dev, report,
-                                   mixed)
+    ecounts, erates, one_rank = engine_phase(idx, base_argv, inserts, dev,
+                                             report, mixed)
     counts.update(ecounts)
 
+    # -- the same three streams over a mesh of two ranks sharing the card,
+    # served while this process fits the forest bank on the host
+    mesh_run = MeshRun(idx, base_argv, inserts)
+    forest = forest_fit(idx, "; the mesh phase's two ranks served meanwhile")
+    mcounts, mesh_rates = engine_mesh_phase(
+        mesh_run, card, one_rank, "; this process fit the forest bank "
+        "meanwhile")
+    counts.update(mcounts)
+
     # -- the forest bank, then the open loop, on the same index
-    fcounts, rates["forest"], frow = forest_phase(idx, base_argv, dev, card)
+    fcounts, rates["forest"], frow = forest_phase(idx, forest, base_argv,
+                                                  dev, card)
     counts.update(fcounts)
     rows.append(frow)
     ocounts, open_loop = open_loop_phase(idx, base_argv, dev)
@@ -3433,6 +3809,8 @@ def main(argv=None) -> int:
           f"{rates['point']}; mixed {rates['mixed']} with {INSERTS} "
           f"inserts; engine at one rank: range {erates['engine range']}, "
           f"point {erates['engine point']}, mixed {erates['engine mixed']}; "
+          f"engine over a 1x2 mesh on one card (gloo, through the host): "
+          f"{mesh_rates}; "
           f"forest bank {rates['forest']}; open loop at 1.5x "
           f"capacity: deadline formation {open_loop['deadline']}, full "
           f"{open_loop['full']} ({opts.points} points, batch {args.batch}); "

@@ -1,13 +1,14 @@
-"""Batched serving engine for the "AI+R"-tree, at one rank.
+"""Batched serving engine for the "AI+R"-tree, over one rank or a mesh.
 
 The reference's engine (``src/repro/core/engine.py``) is a ``shard_map``
 over a (pod, data, model) mesh: queries split over (pod, data), leaf
 entries and grid-cell experts over ``model``, with two collectives a
 batch over ``model`` (a ``pmax`` of the dense score union, ``psum``s of
-the refine counts). This port serves one rank: every stage takes a
-``ModelAxis`` whose collectives are identities at world size 1, so the
-stage bodies keep the reference's collective layout, and a
-``torch.distributed`` group can later stand behind the same calls.
+the refine counts). Here every stage takes a ``ModelAxis``: at one rank
+its collectives are identities (``ONE_RANK``); past one rank they act on
+a ``torch.distributed`` process group (``model_axis(n, group)``), and
+each rank serves its shard of the padded hybrid (``shard_for_rank``).
+The data axis, the rows of a batch, is ``launch.mesh``'s.
 
 A serve step is a composition of stages, each a function of the hybrid
 tree and the query batch:
@@ -18,8 +19,9 @@ tree and the query batch:
   refine stage;
 * ``_ai_path`` — the learned path: grid routing, the cell guard, the
   score union (``topk``: compact prediction slots, with an MLP bank on
-  the card ``ops.mlp_predict_compact``; ``pmax``: the paper's dense
-  ``[B, L]`` union) and the shared refine stage;
+  the card ``ops.mlp_predict_compact``, united across shards through the
+  all-gathered slot lists; ``pmax``: the paper's dense ``[B, L]`` union)
+  and the shared refine stage;
 * ``_delta_path`` — the insert buffer's hit count (``ops.delta_probe``);
 * ``_route_combine`` — the router (``ops.forest_infer``) and the
   paper's cost accounting.
@@ -33,13 +35,15 @@ scheduler's ``r_truncated`` re-serve (``schedule.serve_workload``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import traversal
 from repro_torch.core.aitree import bank_n_cells, cell_slot_probs
+from repro_torch.core.classifiers.forest import Forest
 from repro_torch.core.classifiers.knn import KNNBank
 from repro_torch.core.classifiers.mlp import MLPBank, global_scores
 from repro_torch.core.classifiers.router import route_high
@@ -71,32 +75,72 @@ class EngineConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """The reference's ``model`` mesh axis as the stages see it: this
-    rank's ``index``, the axis ``size`` and its collectives. At one rank
-    every collective is the identity."""
+    rank's ``index``, the axis ``size`` and its collectives over
+    ``group``, a ``torch.distributed`` process group (None: the default
+    group). At one rank every collective is the identity. Bools go
+    through int32, as the reference's ``.astype(jnp.int32)`` does. With
+    ``via_host`` (a ``gloo`` group) CUDA tensors are staged through host
+    memory for the collective and come back on their device."""
     index: int = 0
     size: int = 1
+    group: Any = None
+    via_host: bool = False
+
+    def _buffer(self, x: torch.Tensor) -> torch.Tensor:
+        """A fresh contiguous copy of ``x`` for a collective to fill."""
+        dev = torch.device("cpu") if self.via_host else x.device
+        dtype = torch.int32 if x.dtype == torch.bool else x.dtype
+        return x.to(device=dev, dtype=dtype, copy=True).contiguous()
+
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        buf = self._buffer(x)
+        dist.all_reduce(buf, op=op, group=self.group)
+        return buf.to(x.device)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        """The sum over the axis (int32 for a bool ``x``)."""
+        return self._all_reduce(x, dist.ReduceOp.SUM)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        """The elementwise maximum over the axis."""
+        return self._all_reduce(x, dist.ReduceOp.MAX)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return x
+        """Every rank's ``x`` concatenated along ``dim`` in axis-index
+        order (``jax.lax.all_gather(..., tiled=True)``)."""
+        if self.size == 1:
+            return x
+        buf = self._buffer(x)
+        parts = [torch.empty_like(buf) for _ in range(self.size)]
+        dist.all_gather(parts, buf, group=self.group)
+        out = torch.cat(parts, dim=dim).to(x.device)
+        return out.bool() if x.dtype == torch.bool else out
 
 
-def model_axis(world_size: int = 1) -> ModelAxis:
-    """The model axis of a ``world_size``-rank engine; only one rank is
-    served (the multi-GPU engine, ROADMAP A11, is not ported)."""
-    if world_size != 1:
-        raise NotImplementedError(
-            f"a model axis of {world_size} ranks needs the multi-GPU "
-            "engine (ROADMAP A11); this engine serves one rank")
-    return ModelAxis()
+ONE_RANK = ModelAxis()
 
 
-ONE_RANK = model_axis(1)
+def model_axis(world_size: int = 1, group=None) -> ModelAxis:
+    """The model axis of a ``world_size``-rank engine over ``group`` (a
+    ``torch.distributed`` process group; None: the default group). One
+    rank is ``ONE_RANK``. More ranks need an initialised process group
+    of exactly ``world_size`` ranks: ``RuntimeError`` when none is
+    initialised, ``ValueError`` when its size differs."""
+    if world_size == 1:
+        return ONE_RANK
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"a model axis of {world_size} ranks needs an initialised "
+            "torch.distributed process group (init_process_group); none "
+            "is, and one rank is never served in its place")
+    size = dist.get_world_size(group)
+    if size != world_size:
+        raise ValueError(f"a model axis of {world_size} ranks got a group "
+                         f"of {size}")
+    return ModelAxis(index=dist.get_rank(group), size=size, group=group,
+                     via_host=dist.get_backend(group) == "gloo")
 
 
 def _pad_rows(a: torch.Tensor, n: int, fill) -> torch.Tensor:
@@ -170,6 +214,72 @@ def pad_tree_for_sharding(h: HybridTree, n_shards: int) -> HybridTree:
                 thresh=_pad_rows(bank.thresh, pc, np.inf),
                 tables=_pad_rows(bank.tables, pc, 0), **common)
     ait = dataclasses.replace(h.ait, bank=bank, cell_ok=cell_ok)
+    return dataclasses.replace(h, tree=t, ait=ait)
+
+
+# the bank fields split over the model axis, a row a cell (the reference's
+# ``tree_shardings_p``); ``mu`` / ``sd`` and every other field replicate
+_BANK_SHARDED = {
+    KNNBank: ("feats", "labels", "label_map", "lmask"),
+    MLPBank: ("w1", "b1", "w2", "b2", "label_map", "lmask"),
+    Forest: ("feat_idx", "thresh", "tables", "label_map", "lmask"),
+}
+
+
+def shard_for_rank(h: HybridTree, axis: ModelAxis) -> HybridTree:
+    """This rank's shard of a hybrid padded for ``axis.size`` shards
+    (``pad_tree_for_sharding``): the reference's ``tree_shardings_p``
+    split, taken at ``axis.index``.
+
+    Split over the model axis, each rank keeping its contiguous run: the
+    leaf level's ``mbrs`` and ``parent``, ``leaf_entries``,
+    ``leaf_entry_ids`` and ``leaf_counts``; the ancestor table's
+    ``starts`` columns (its leaf tiles); the bank's per-cell rows and
+    ``cell_ok``. Everything else is replicated: the internal levels, the
+    grid, the MLP bank's ``mu`` / ``sd`` and the router. The local leaf
+    level's parents still index the replicated level above, so the walk
+    pack is built anew from the local levels (``build_walk_pack``): a run
+    of non-decreasing parents is non-decreasing, and internal nodes whose
+    children live on another rank get empty child ranges. The shards are
+    copies, so the padded hybrid can be freed.
+    """
+    n, r = axis.size, axis.index
+    if n == 1:
+        return h
+    t = h.tree
+    C = bank_n_cells(h.ait.bank)
+    if t.n_leaves % n or C % n:
+        raise ValueError(
+            f"shard_for_rank: {t.n_leaves} leaves and {C} cells do not "
+            f"split over {n} shards (pad_tree_for_sharding first)")
+
+    def part(a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        w = a.shape[dim] // n
+        piece = a.narrow(dim, r * w, w)
+        return piece.clone(memory_format=torch.contiguous_format)
+    leaf = t.levels[-1]
+    levels = t.levels[:-1] + (Level(mbrs=part(leaf.mbrs),
+                                    parent=part(leaf.parent)),)
+    aslices = t.aslices
+    if aslices is not None:
+        if aslices.n_tiles % n or \
+                aslices.n_tiles // n * aslices.tl != t.n_leaves // n:
+            raise ValueError(
+                f"shard_for_rank: an ancestor table of {aslices.n_tiles} "
+                f"tiles of {aslices.tl} leaves does not match {n} shards "
+                f"of {t.n_leaves // n} leaves")
+        aslices = dataclasses.replace(aslices,
+                                      starts=part(aslices.starts, 1))
+    t = dataclasses.replace(
+        t, levels=levels, leaf_entries=part(t.leaf_entries),
+        leaf_entry_ids=part(t.leaf_entry_ids),
+        leaf_counts=part(t.leaf_counts), aslices=aslices,
+        wpack=build_walk_pack([lv.mbrs for lv in levels],
+                              [lv.parent for lv in levels]))
+    bank = h.ait.bank
+    bank = dataclasses.replace(bank, **{
+        f: part(getattr(bank, f)) for f in _BANK_SHARDED[type(bank)]})
+    ait = dataclasses.replace(h.ait, bank=bank, cell_ok=part(h.ait.cell_ok))
     return dataclasses.replace(h, tree=t, ait=ait)
 
 
@@ -248,14 +358,19 @@ def _r_path(h: HybridTree, queries: torch.Tensor, cfg: EngineConfig,
 def _ai_slots_topk(h: HybridTree, queries: torch.Tensor,
                    cfg: EngineConfig, loc_ids: torch.Tensor,
                    local: torch.Tensor, axis: ModelAxis, L_glob: int):
-    """Compact prediction slots (``topk`` union): the first ``max_pred``
-    distinct predicted leaf ids of the local cells. With an MLP bank on
-    the card this is the fused prediction kernel; otherwise
-    ``compact_candidates`` over the [B, S·Cl] candidate labels. At one
-    rank the slots are the answer, so no union runs (``model_axis``
-    refuses more ranks).
+    """Compact prediction slots (``topk`` union): each rank compacts its
+    local cells' predictions to the first ``max_pred`` distinct global
+    leaf ids. With an MLP bank on the card this is the fused prediction
+    kernel; otherwise ``compact_candidates`` over the [B, S·Cl] candidate
+    labels. At one rank the slots are the answer. Past one, the
+    all-gathered ``[B, size·k]`` slot lists are scattered into this
+    rank's ``[B, L_loc]`` leaf range and compacted there; ``n_pred`` is
+    the psum of the local counts (each distinct leaf lies in one rank's
+    range), and any rank's overflow flags the row (a fallback, never a
+    wrong answer).
 
-    Returns ``(p_idx, p_valid, n_pred, overflow)``.
+    Returns ``(p_idx, p_valid, n_pred, overflow)``, ``p_idx`` local leaf
+    ids.
     """
     B, k, bank = queries.shape[0], cfg.max_pred, h.ait.bank
     if h.ait.kind == "mlp" and queries.device.type == "cuda":
@@ -268,7 +383,20 @@ def _ai_slots_topk(h: HybridTree, queries: torch.Tensor,
         ok = local[:, :, None] & bank.lmask[li] & (probs > cfg.threshold)
         idx, valid, cnt = traversal.compact_candidates(
             bank.label_map[li].reshape(B, -1), ok.reshape(B, -1), k)
-    return idx, valid, cnt, cnt > k
+    if axis.size == 1:
+        return idx, valid, cnt, cnt > k
+    trunc = axis.psum((cnt > k).to(torch.int32)) > 0
+    ag_i = axis.all_gather(idx, 1)
+    ag_v = axis.all_gather(valid, 1)
+    L_loc = h.tree.n_leaves
+    lo = axis.index * L_loc
+    keep = ag_v & (ag_i >= lo) & (ag_i < lo + L_loc)
+    li = torch.clamp(ag_i - lo, 0, L_loc - 1).long()
+    pred = torch.zeros((B, L_loc), dtype=torch.int32, device=idx.device)
+    pred = pred.scatter_reduce(1, li, keep.to(torch.int32), reduce="amax") > 0
+    n_pred = axis.psum(_sum(pred))
+    p_idx, p_valid, _ = traversal.compact_mask_counted(pred, k)
+    return p_idx, p_valid, n_pred, (n_pred > k) | trunc
 
 
 def _ai_path(h: HybridTree, queries: torch.Tensor, cfg: EngineConfig,

@@ -465,9 +465,7 @@ class FreshServer:
         self.points = allp
         if self.fit_state is not None:
             self.hybrid = dataclasses.replace(self.hybrid, tree=dtree)
-            self.hybrid, self.fit_state, rep = buildlib.refit_cells(
-                self.hybrid, self.fit_state,
-                cells=np.zeros((0,), np.int64))
+            rep = self._refit(np.zeros((0,), np.int64))
             self.monitor.note_repack(
                 changed=self.fit_state.cell_stale.copy())
             self._note_refit(rep)
@@ -494,10 +492,16 @@ class FreshServer:
             raise ValueError("refit_cells needs a FitState "
                              "(build with fit_airtree and pass "
                              "BuildReport.fit_state)")
-        self.hybrid, self.fit_state, rep = buildlib.refit_cells(
-            self.hybrid, self.fit_state, cells)
+        rep = self._refit(cells)
         self._note_refit(rep)
         self._sync_guard()
+        return rep
+
+    def _refit(self, cells: Optional[np.ndarray]):
+        """``build.refit_cells`` of the live hybrid and ``fit_state`` on
+        chunk ``cells``: updates both, returns the report."""
+        self.hybrid, self.fit_state, rep = buildlib.refit_cells(
+            self.hybrid, self.fit_state, cells)
         return rep
 
     def on_segment(self) -> Optional[MaintenanceDecision]:
@@ -542,30 +546,46 @@ class EngineFreshServer(FreshServer):
     (inserts, policy demotions) splices just the padded ``cell_ok``.
     Repacks, refit chunks and the policy loop are ``FreshServer``'s; the
     wide tier's flag is ``ServeStats.r_truncated``.
+
+    With a ``mesh`` (``launch.mesh.Mesh``) every rank of it runs the
+    server: each serves its shard of the padded hybrid
+    (``engine.shard_for_rank``; ``cell_ok`` spliced as its local slice)
+    and its rows of each batch (``Mesh.step``), and every rank runs the
+    same maintenance loop on the host. The all-gathered stats feed every
+    rank's monitor the same signal and the host's repacks are
+    deterministic, so the ranks' trees agree. A refit chunk trains on
+    the device, which need not give the same bits in two processes, so
+    rank 0 alone runs each ``build.refit_cells`` and broadcasts the
+    refitted AI side (bank, grid and ``cell_ok``), the ``FitState`` and
+    the report to every rank (``Mesh.broadcast``).
     """
 
     trunc_field = "r_truncated"
 
     def __init__(self, points: np.ndarray, hybrid: HybridTree, cfg, *,
-                 kind: str, n_model: int = 1, delta_cap: int = 4096,
+                 kind: str, mesh=None, delta_cap: int = 4096,
                  wide_factor: int = 8, fit_state=None,
                  policy: Optional[MaintenancePolicy] = None):
         from repro_torch.core import engine
-        self._axis = engine.model_axis(n_model)
+        self._mesh = mesh
+        self._axis = engine.ONE_RANK if mesh is None else mesh.model
         self._h_p, self._padded_from = None, (None, None)
         self._narrow, self._wide = engine.make_two_tier_steps(
             cfg, kind=kind, wide_factor=wide_factor, axis=self._axis)
+        if mesh is not None:
+            self._narrow = mesh.step(self._narrow)
+            self._wide = mesh.step(self._wide)
         super().__init__(points, hybrid, delta_cap=delta_cap,
                          max_visited=cfg.max_visited, delta_k=cfg.delta_k,
                          wide_factor=wide_factor, fit_state=fit_state,
                          policy=policy)
 
     def _repad(self) -> None:
-        """Full re-pad of the served copy — needed when the tree or the
-        bank changed."""
+        """Full re-pad of the served copy (this rank's shard of it) —
+        needed when the tree or the bank changed."""
         from repro_torch.core import engine
-        self._h_p = engine.pad_tree_for_sharding(self.hybrid,
-                                                 self._axis.size)
+        h_p = engine.pad_tree_for_sharding(self.hybrid, self._axis.size)
+        self._h_p = engine.shard_for_rank(h_p, self._axis)
         self._padded_from = (self.hybrid.tree, self.hybrid.ait.bank)
 
     def _sync_guard(self) -> None:
@@ -575,12 +595,26 @@ class EngineFreshServer(FreshServer):
             self._repad()
             return
         ok = self.hybrid.ait.cell_ok
-        pad = self._h_p.ait.cell_ok.shape[0] - ok.shape[0]
+        n, i = self._axis.size, self._axis.index
+        C_loc = self._h_p.ait.cell_ok.shape[0]
+        pad = C_loc * n - ok.shape[0]
         if pad:
             ok = torch.cat([ok, torch.zeros((pad,), dtype=ok.dtype,
                                             device=ok.device)])
-        self._h_p = dataclasses.replace(
-            self._h_p, ait=dataclasses.replace(self._h_p.ait, cell_ok=ok))
+        self._h_p = dataclasses.replace(self._h_p, ait=dataclasses.replace(
+            self._h_p.ait, cell_ok=ok[i * C_loc:(i + 1) * C_loc]))
+
+    def _refit(self, cells: Optional[np.ndarray]):
+        if self._mesh is None:
+            return super()._refit(cells)
+        out = None
+        if self._mesh.rank == 0:
+            h, state, rep = buildlib.refit_cells(self.hybrid,
+                                                 self.fit_state, cells)
+            out = (h.ait, state, rep)
+        ait, self.fit_state, rep = self._mesh.broadcast(out)
+        self.hybrid = dataclasses.replace(self.hybrid, ait=ait)
+        return rep
 
     def _serve(self, q, widen: int):
         q = torch.as_tensor(q, dtype=torch.float32, device=self.device)

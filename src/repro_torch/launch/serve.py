@@ -2,7 +2,8 @@
 
 ``python -m repro_torch.launch.serve --points 120000 --queries 4096 [...]``
 
-End-to-end, on one device: synthesize the dataset → dynamic (Guttman)
+End-to-end, on one device or (``--distributed``) on a mesh of ranks:
+synthesize the dataset → dynamic (Guttman)
 R-tree build on the host → for range and point streams, workload
 labelling on the R path and AI+R training (grid search + router) →
 closed-loop streaming of the *entire* query workload through the spatial
@@ -18,9 +19,27 @@ tier. Each stream closes with an oracle line.
 need only the R-tree. On ``--device cuda`` (the default) every stream
 runs the CUDA kernels of its path; ``--device cpu`` runs their plain
 PyTorch versions. ``--classifier`` picks the AI-tree's bank: ``mlp``
-(the port's default until the engine is ported), ``knn`` (the default of
-``repro.launch.serve``) or ``forest`` (per-cell oblivious decision trees,
-the paper's classifier family, fit on the host).
+(the port's default), ``knn`` (the default of ``repro.launch.serve``) or
+``forest`` (per-cell oblivious decision trees, the paper's classifier
+family, fit on the host).
+
+``--distributed`` serves through the engine (``core.engine``) over the
+world ``torch.distributed.run`` starts:
+
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --distributed --device cpu [...]
+
+The mesh is the reference driver's, ``n_data = max(1, world // 2)`` and
+``n_model = world // n_data`` (``launch.mesh``): the range stream and
+the open loop take the engine's two-tier steps, the point stream its
+point step and the mixed stream ``monitor.EngineFreshServer``. Rank 0
+builds the index and broadcasts it; every rank serves its shard of the
+tree and its rows of each batch, and only rank 0 prints. At one rank
+(no ``torch.distributed.run``) the hybrid path serves, as the reference
+does on one device; kNN and join have no engine path and are served by
+rank 0 alone. Each rank takes ``cuda:(LOCAL_RANK % device_count)`` or
+the CPU; the backend is ``nccl`` where every rank has a card of its own,
+``gloo`` where ranks share a card or run on the CPU.
 
 Open-loop mode (``--arrival poisson|bursty|trace``, range stream only):
 instead of draining the workload closed-loop, queries are stamped with
@@ -49,21 +68,26 @@ stream's device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.core import build, device_tree as dt, joins, labels
+from repro_torch.core import build, device_tree as dt, engine, joins, labels
 from repro_torch.core import knn as knnlib, runtime, schedule
 from repro_torch.core.geometry import torch_contains_point
 from repro_torch.core.hybrid import HybridTree, hybrid_query, point_query
-from repro_torch.core.monitor import DefaultPolicy, FreshServer
+from repro_torch.core.monitor import (DefaultPolicy, EngineFreshServer,
+                                      FreshServer)
 from repro_torch.core.rtree import RTree
 from repro_torch.data import arrivals as arrv, synth
+from repro_torch.launch import mesh as meshlib
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -90,6 +114,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the CUDA kernels; cpu their plain "
                         "PyTorch versions")
+    p.add_argument("--distributed", action="store_true",
+                   help="serve through the engine")
     p.add_argument("--query-type", default="range",
                    choices=("range", "point", "knn", "join"),
                    help="serving path: range rects (default), point "
@@ -217,10 +243,27 @@ def build_index(args: argparse.Namespace) -> Index:
                  hybrid=hyb, report=rep)
 
 
-def make_serve_fns(hyb: HybridTree, args: argparse.Namespace):
-    """(narrow_fn, wide_fn, trunc_field): ``hybrid_query`` closures with
-    the narrow/wide bound split (the wide tier also widens
-    ``max_results`` so its result-id gather cannot re-truncate)."""
+def engine_config(args: argparse.Namespace) -> engine.EngineConfig:
+    """The engine's configuration under the driver's flags
+    (``repro.launch.serve --distributed``'s)."""
+    return engine.EngineConfig(max_visited=args.max_visited)
+
+
+def make_serve_fns(hyb: HybridTree, args: argparse.Namespace,
+                   mesh: meshlib.Mesh | None = None):
+    """(narrow_fn, wide_fn, trunc_field). Without a mesh: ``hybrid_query``
+    closures with the narrow/wide bound split (the wide tier also widens
+    ``max_results`` so its result-id gather cannot re-truncate; flag
+    ``truncated``). With one: the engine's two-tier steps over this
+    rank's shard and rows (flag ``r_truncated``)."""
+    if mesh is not None:
+        h = mesh.shard(hyb)
+        narrow, wide = engine.make_two_tier_steps(
+            engine_config(args), kind=hyb.ait.kind,
+            wide_factor=args.wide_factor, axis=mesh.model)
+        narrow, wide = mesh.step(narrow), mesh.step(wide)
+        return (lambda q: narrow(h, q)), (lambda q: wide(h, q)), \
+            "r_truncated"
     mv, mr = args.max_visited, 512
 
     def narrow(q):
@@ -259,29 +302,33 @@ def _stream(narrow_fn: Callable, q: np.ndarray, args: argparse.Namespace,
 
 
 def range_stream(hyb: HybridTree, wl: labels.Workload,
-                 args: argparse.Namespace) -> Callable:
-    """The range stream: the workload through ``hybrid_query``, overflow
-    re-served wide."""
-    narrow_fn, wide_fn, trunc_field = make_serve_fns(hyb, args)
+                 args: argparse.Namespace,
+                 mesh: meshlib.Mesh | None = None) -> Callable:
+    """The range stream: the workload through ``hybrid_query`` (or the
+    engine over ``mesh``), overflow re-served wide."""
+    narrow_fn, wide_fn, trunc_field = make_serve_fns(hyb, args, mesh)
     return _stream(narrow_fn, wl.queries, args, wide_fn=wide_fn,
                    trunc_field=trunc_field)
 
 
 def serve_stream(hyb: HybridTree, wl: labels.Workload,
-                 args: argparse.Namespace
+                 args: argparse.Namespace,
+                 mesh: meshlib.Mesh | None = None
                  ) -> tuple[schedule.ServeReport, float]:
     """The range stream, warmed and timed (``timed``)."""
-    return timed(range_stream(hyb, wl, args), args.reps)
+    return timed(range_stream(hyb, wl, args, mesh), args.reps)
 
 
 def report_stream(report: schedule.ServeReport, dt_s: float,
-                  idx: Index) -> int:
+                  idx: Index, mesh: meshlib.Mesh | None = None) -> int:
     """Print the ``# stream`` / ``# serve`` / ``# AI path`` / ``# oracle``
-    lines; returns the oracle's mismatch count against the labels."""
+    lines of a stream served by ``hybrid_query`` (or by the engine over
+    ``mesh``); returns the oracle's mismatch count against the labels."""
     st = report.stats
     acc = float(np.asarray(st.leaf_accesses).mean())
     ai = float(np.asarray(st.used_ai).mean())
-    resid = int(np.asarray(st.truncated).sum())
+    resid = int(np.asarray(st.r_truncated if mesh is not None
+                           else st.truncated).sum())
     print(f"# stream: {report.n_queries} queries in {report.n_batches} "
           f"batches (sort={report.sort}), {report.n_reserved} re-served "
           f"wide ({report.wide_batches} batches), {resid} still truncated")
@@ -293,7 +340,12 @@ def report_stream(report: schedule.ServeReport, dt_s: float,
     dense_b = report.n_queries * L * 4
     slot_b = report.n_queries * (k + 1) * 4
     kind = idx.hybrid.ait.kind
-    if kind != "mlp":
+    if mesh is not None and not (kind == "mlp"
+                                 and idx.dtree.device.type == "cuda"):
+        verdict = (f"never built (the engine's topk union; each of the "
+                   f"{mesh.n_model} model ranks scatters the gathered slots "
+                   f"into its [B, {-(-L // mesh.n_model)}] leaf range)")
+    elif kind != "mlp":
         verdict = (f"still materialized (the {kind} bank has no fused "
                    "prediction kernel)")
     elif idx.dtree.device.type == "cuda":
@@ -443,27 +495,36 @@ def serve_join(dtree: dt.DeviceTree, pts: np.ndarray,
 
 
 def point_stream(hyb: HybridTree, base: np.ndarray,
-                 args: argparse.Namespace) -> tuple[np.ndarray, Callable]:
+                 args: argparse.Namespace,
+                 mesh: meshlib.Mesh | None = None
+                 ) -> tuple[np.ndarray, Callable]:
     """The point stream: ``(q, run)``, degenerate rects at dataset points
-    and a closure serving them once through ``point_query`` (no wide
-    tier)."""
+    and a closure serving them once through ``point_query`` (or the
+    engine's point step over ``mesh``; no wide tier)."""
     rng = np.random.default_rng(0)
     ppts = base[rng.integers(0, base.shape[0], args.queries)].astype(
         np.float32)
     q = np.concatenate([ppts, ppts], axis=1)
-    return q, _stream(lambda qq: point_query(hyb, qq), q, args)
+    if mesh is None:
+        return q, _stream(lambda qq: point_query(hyb, qq), q, args)
+    h = mesh.shard(hyb)
+    step = mesh.step(engine.make_point_serve_step(
+        engine_config(args), kind=hyb.ait.kind, axis=mesh.model))
+    return q, _stream(lambda qq: step(h, qq), q, args)
 
 
 def serve_point(hyb: HybridTree, base: np.ndarray,
-                args: argparse.Namespace) -> tuple[dict, int]:
+                args: argparse.Namespace,
+                mesh: meshlib.Mesh | None = None) -> tuple[dict, int]:
     """Point-query stream: degenerate rects at dataset points served
     with single-cell AI routing and narrowed bounds — no wide tier, so
     exactness is asserted (zero truncated rows) instead of re-served.
     Returns the stream's rate and the oracle's mismatch count."""
-    q, run = point_stream(hyb, base, args)
+    q, run = point_stream(hyb, base, args, mesh)
     report, dt_s = timed(run, args.reps)
     st = report.stats
-    resid = int(np.asarray(st.truncated).sum())
+    resid = int(np.asarray(st.r_truncated if mesh is not None
+                           else st.truncated).sum())
     acc = float(np.asarray(st.leaf_accesses).mean())
     ai = float(np.asarray(st.used_ai).mean())
     print(f"# point stream: {report.n_queries} degenerate-rect queries "
@@ -488,11 +549,12 @@ def serve_point(hyb: HybridTree, base: np.ndarray,
     return {"queries/s": report.n_queries / dt_s}, mism
 
 
-def make_fresh_server(idx: Index, args: argparse.Namespace
-                      ) -> FreshServer:
-    """The mixed stream's server on the index's device. ``--policy
-    default`` turns on the maintenance loop (span-diff repacks and
-    incremental ``refit_cells`` chunks between segments) with the build's
+def make_fresh_server(idx: Index, args: argparse.Namespace,
+                      mesh: meshlib.Mesh | None = None) -> FreshServer:
+    """The mixed stream's server on the index's device: ``FreshServer``,
+    or ``EngineFreshServer`` over ``mesh``. ``--policy default`` turns on
+    the maintenance loop (span-diff repacks and incremental
+    ``refit_cells`` chunks between segments) with the build's
     ``FitState``. A forest bank gets no ``FitState``: repack, demote and
     promote still run, and the server skips the refit chunks, prints its
     one-time notice and counts the skips on each decision
@@ -503,6 +565,12 @@ def make_fresh_server(idx: Index, args: argparse.Namespace
                                repack_at=args.repack_at)
         if idx.hybrid.ait.kind != "forest":
             fit_state = idx.report.fit_state
+    if mesh is not None:
+        return EngineFreshServer(
+            idx.points, idx.hybrid, engine_config(args),
+            kind=idx.hybrid.ait.kind, mesh=mesh, delta_cap=args.delta_cap,
+            wide_factor=args.wide_factor, fit_state=fit_state,
+            policy=policy)
     return FreshServer(idx.points, idx.hybrid, delta_cap=args.delta_cap,
                        max_visited=args.max_visited, max_results=512,
                        wide_factor=args.wide_factor, fit_state=fit_state,
@@ -516,13 +584,15 @@ def mixed_oracle(mixed: schedule.MixedReport, base: np.ndarray,
     (``schedule.visible_segments``) on ``device``: ``(n_results
     mismatches over every query, id-set mismatches, rows compared)`` —
     id sets are compared on the ``id_rows`` whose true count fits the
-    result table and whose row is not flagged truncated. A visible
-    point's index is its global id (inserts continue the numbering)."""
+    result table and whose row is not flagged truncated (the engine's
+    ``ServeStats`` carry no ids: pass no ``id_rows``). A visible point's
+    index is its global id (inserts continue the numbering)."""
     st = mixed.stats
     got = np.asarray(st.n_results)
-    trunc = np.asarray(st.truncated).astype(bool)
-    mr = np.asarray(st.result_ids).shape[1]
     want_ids = set(int(i) for i in id_rows)
+    if want_ids:
+        trunc = np.asarray(st.truncated).astype(bool)
+        mr = np.asarray(st.result_ids).shape[1]
     mism = id_mism = n_rows = 0
     for (lo, hi), visible in schedule.visible_segments(mixed, base):
         for o, inside in _inside_chunks(visible, queries[lo:hi], device):
@@ -541,14 +611,18 @@ def mixed_oracle(mixed: schedule.MixedReport, base: np.ndarray,
 
 
 def serve_mixed(idx: Index, extra: np.ndarray, args: argparse.Namespace,
-                server: FreshServer | None = None
+                server: FreshServer | None = None,
+                mesh: meshlib.Mesh | None = None
                 ) -> tuple[schedule.MixedReport, FreshServer, float, int]:
     """Drive the mixed read/write stream (the range workload with
-    ``extra`` staged between segments), print the reference's ``# mixed
-    stream`` / ``# serve`` / ``# freshness`` (/ ``# policy`` /
-    ``# recovery``) lines and the per-segment brute-force ``# oracle``.
-    Returns ``(report, server, seconds, oracle mismatches)``."""
-    server = server if server is not None else make_fresh_server(idx, args)
+    ``extra`` staged between segments) through ``server`` (by default
+    ``make_fresh_server``'s, over ``mesh`` if given), print the
+    reference's ``# mixed stream`` / ``# serve`` / ``# freshness`` (/
+    ``# policy`` / ``# recovery``) lines and the per-segment brute-force
+    ``# oracle``. Returns ``(report, server, seconds, oracle
+    mismatches)``."""
+    if server is None:
+        server = make_fresh_server(idx, args, mesh)
     wl = idx.workload
     t0 = time.time()
     mixed = schedule.serve_mixed_workload(
@@ -621,18 +695,48 @@ def measure_capacity(narrow_fn: Callable, wide_fn: Callable,
     return ts
 
 
+def agreed_clock(fns: tuple, mesh: meshlib.Mesh, device
+                 ) -> tuple[tuple, Callable]:
+    """``fns`` timed on every rank of ``mesh``, and a ``service_time``
+    for ``runtime.run_stream`` that returns the last step's time as the
+    slowest rank took it (``Mesh.agree_max``): the open loop's batch
+    formation reads its clock, and every rank must form the same batches
+    for the steps' collectives to pair up."""
+    dev = resolve_device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    last = [0.0]
+
+    def timed_fn(fn):
+        def run(q):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(q)
+            sync()
+            last[0] = mesh.agree_max(time.perf_counter() - t0)
+            return out
+        return run
+    return tuple(timed_fn(f) for f in fns), (lambda n_valid, tier: last[0])
+
+
 def serve_open_loop(narrow_fn: Callable, wide_fn: Callable,
                     trunc_field: str, wl: labels.Workload,
-                    args: argparse.Namespace
+                    args: argparse.Namespace,
+                    mesh: meshlib.Mesh | None = None
                     ) -> tuple[runtime.RuntimeReport, int]:
     """Open-loop serving: stamp arrivals, drive ``runtime.run_stream``,
     report the latency/goodput/degraded accounting plus the no-drop
     oracle (every non-degraded row exact against the workload labels).
     The auto rate and deadline are pinned to the step costs measured on
-    the device (``measure_capacity``). Returns the runtime's report and
-    the oracle's mismatch count."""
+    the device (``measure_capacity``). Over a ``mesh`` the ranks agree on
+    the measured costs and on every step's time (``agreed_clock``).
+    Returns the runtime's report and the oracle's mismatch count."""
     q = wl.queries
     ts = measure_capacity(narrow_fn, wide_fn, q, args)
+    service_time = None
+    if mesh is not None:
+        ts = {k: mesh.agree_max(v) for k, v in ts.items()}
+        (narrow_fn, wide_fn), service_time = agreed_clock(
+            (narrow_fn, wide_fn), mesh, args.device)
     cap_qps = args.batch / (ts["narrow"] + ts["wide"])
     rate = args.rate if args.rate > 0 else 1.5 * cap_qps
     deadline_s = (args.deadline_ms / 1e3 if args.deadline_ms > 0
@@ -645,7 +749,8 @@ def serve_open_loop(narrow_fn: Callable, wide_fn: Callable,
     rep = runtime.run_stream(
         narrow_fn, q, arr, batch=args.batch, deadline_s=deadline_s,
         sort=args.sort, wide_fn=wide_fn, trunc_field=trunc_field,
-        formation=args.formation, device=args.device)
+        formation=args.formation, service_time=service_time,
+        device=args.device)
     lat = rep.telemetry["latency_s"]
     depth = rep.telemetry["queue_depth"]
     print(f"# stream: {rep.n_queries} queries in {rep.n_batches} batches "
@@ -670,26 +775,76 @@ def serve_open_loop(narrow_fn: Callable, wide_fn: Callable,
     return rep, mism
 
 
-def main(argv=None) -> None:
-    args = parse_args(argv)
+def join_mesh(args: argparse.Namespace) -> meshlib.Mesh | None:
+    """``--distributed``: join the world ``torch.distributed.run``
+    describes and build the reference driver's mesh over it
+    (``meshlib.serve_mesh_shape``); None at one rank (no ``WORLD_SIZE``
+    or a world of one), where the hybrid path serves. Prints, on rank 0,
+    which path serves with the world, mesh, backend and ranks per
+    card."""
+    size = int(os.environ.get("WORLD_SIZE", "1"))
+    if size == 1:
+        print("# distributed: world 1, mesh 1x1 (data x model), no "
+              "backend, 1 rank per device: the hybrid path serves, as "
+              "repro.launch.serve does on one device")
+        return None
+    nd, nm = meshlib.serve_mesh_shape(size)
+    if nd * nm != size:
+        raise ValueError(f"--distributed: a world of {size} ranks does not "
+                         f"fill the driver's {nd}x{nm} mesh")
+    w = meshlib.init_from_env(args.device)
+    mesh = meshlib.make_debug_mesh(nd, nm, device=w.device)
+    per = (f"{w.ranks_per_card} ranks per card" if w.device.type == "cuda"
+           else "on the CPU")
+    if w.rank == 0:
+        print(f"# distributed: world {w.size}, mesh {nd}x{nm} (data x "
+              f"model), backend {w.backend}, {per}: the engine serves")
+    return mesh
+
+
+def drive(args: argparse.Namespace, mesh: meshlib.Mesh | None) -> None:
+    """Build the index (on rank 0, broadcast over a mesh) and serve the
+    stream ``args`` names."""
     if args.query_type in ("knn", "join"):     # the R-tree is all they need
+        if mesh is not None and mesh.rank != 0:
+            return                             # no engine path: rank 0's
         pts, dtree = build_tree(args)
-        serve = serve_knn if args.query_type == "knn" else serve_join
-        serve(dtree, pts, args)
+        fn = serve_knn if args.query_type == "knn" else serve_join
+        fn(dtree, pts, args)
         return
-    idx = build_index(args)
+    if mesh is None:
+        idx = build_index(args)
+    else:
+        idx = mesh.broadcast(build_index(args) if mesh.rank == 0 else None)
     if args.query_type == "point":
-        serve_point(idx.hybrid, idx.points, args)
+        serve_point(idx.hybrid, idx.points, args, mesh)
         return
     if idx.extra is not None:
-        serve_mixed(idx, idx.extra, args)
+        serve_mixed(idx, idx.extra, args, mesh=mesh)
         return
     if args.arrival != "closed":
-        narrow_fn, wide_fn, trunc_field = make_serve_fns(idx.hybrid, args)
-        serve_open_loop(narrow_fn, wide_fn, trunc_field, idx.workload, args)
+        narrow_fn, wide_fn, trunc_field = make_serve_fns(idx.hybrid, args,
+                                                         mesh)
+        serve_open_loop(narrow_fn, wide_fn, trunc_field, idx.workload, args,
+                        mesh)
         return
-    report, dt_s = serve_stream(idx.hybrid, idx.workload, args)
-    report_stream(report, dt_s, idx)
+    report, dt_s = serve_stream(idx.hybrid, idx.workload, args, mesh)
+    report_stream(report, dt_s, idx, mesh)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    mesh = join_mesh(args) if args.distributed else None
+    try:
+        with contextlib.ExitStack() as quiet:
+            if mesh is not None and mesh.rank != 0:
+                # only rank 0 prints the stream reports
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            drive(args, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ newest checkpoint if there is one, installs the preemption handler, and
 train-loops with periodic atomic checkpoints and straggler heartbeats.
 Every config of ``configs.ARCHS`` trains: the synthetic batch carries
 whisper's ``frames`` and qwen2-vl's ``embeds`` as the reference's does.
-``--mesh`` other than one device is ROADMAP A11 (sharding is the
-multi-GPU slice) and raises. At a published width the state must fit
+``--mesh`` other than one device is ROADMAP A11b (the training half of
+the multi-GPU slice: sharding rules over a mesh) and raises. At a published width the state must fit
 the card (params, grads, m and v: 16 bytes a parameter in float32);
 ``chip_smoke.py`` cuts the depth of those that do not.
 
@@ -89,7 +89,7 @@ def setup(args: argparse.Namespace):
         d, m = (int(x) for x in args.mesh.split("x"))
         raise NotImplementedError(
             f"--mesh {d}x{m}: the port trains on one device; sharding "
-            "over a mesh is ROADMAP A11")
+            "over a mesh is ROADMAP A11b")
     dev = resolve_device(args.device)
     ocfg = adamw_config(args)
     state = train_loop.init_train_state(

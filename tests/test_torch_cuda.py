@@ -1305,3 +1305,75 @@ def test_apply_updates_bf16_state_card_against_cpu(cuda, monkeypatch):
         else:
             np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=2.4e-7,
                                        atol=0, err_msg=a[0])
+
+
+def test_engine_mesh_on_one_card_equals_one_rank(cuda, tmp_path):
+    """Two ranks sharing the card over ``gloo`` (a 1x2 mesh, ranks
+    spawned by ``tests/helpers/torch_mesh.py``): for each bank the serve
+    step (both unions, with and without a staged buffer) and the point
+    step equal the one-rank engine on the card field for field on both
+    ranks (MLP rows with a cell-slot score within 1e-5 of the threshold
+    reported, not compared); the two-tier stream clears ``r_truncated``
+    with the workload's counts; each rank launched the engine's
+    kernels."""
+    from helpers.torch_mesh import spawn
+    from repro_torch import bridge
+    from repro_torch.core import build, device_tree as dt, engine, labels
+    from repro_torch.core.aitree import cell_slot_probs
+    from repro_torch.core.grid import cells_of_queries
+    from repro_torch.core.rtree import RTree
+    from repro_torch.data import synth
+    pts = synth.tweets_like(2500, seed=0)
+    qs = synth.synth_queries(pts, 2e-4, 150, seed=1)
+    tree = dt.flatten(RTree(max_entries=32).insert_all(pts), device="cpu")
+    wl = labels.make_workload(tree, qs)
+    fits = {"knn": dict(grid_sizes=(6,)), "forest": dict(grid_sizes=(4,)),
+            "mlp": dict(grid_sizes=(4,), mlp_hidden=16, mlp_epochs=400)}
+    hyb = {k: build.fit_airtree(tree, wl, kind=k, max_pred=16, **f)[0]
+           for k, f in fits.items()}
+    p = pts[np.random.default_rng(5).integers(0, len(pts), 64)]
+    q_point = np.concatenate([p, p], axis=1).astype(np.float32)
+    xy = np.full((512, 2), np.inf, np.float32)
+    xy[:300] = synth.tweets_like(300, seed=5)
+    serve = [(k, u, d) for k in fits for u in ("topk", "pmax")
+             for d in (False, True)]
+    ranks = spawn(dict(mesh=(1, 2), device="cuda", hybrids=hyb, q=qs[:64],
+                       xy=xy, q_point=q_point, stream=qs, max_visited=16,
+                       serve=serve, point=list(fits), two_tier=list(fits)),
+                  2, tmp_path)
+    g = {k: bridge.hybrid_from_reference(h, cuda) for k, h in hyb.items()}
+    for kind, union, delta in serve + [(k, "point", False) for k in fits]:
+        q = q_point if union == "point" else qs[:64]
+        keep = np.ones(q.shape[0], bool)
+        if kind == "mlp":
+            ids, _, _ = cells_of_queries(hyb[kind].ait.grid,
+                                         torch.from_numpy(q), 4)
+            sp = cell_slot_probs(hyb[kind].ait, torch.from_numpy(q), ids)
+            keep = ~((sp - hyb[kind].ait.threshold).abs() < 1e-5).any(
+                dim=(1, 2)).numpy()
+        if union == "point":
+            step = engine.make_point_serve_step(engine.EngineConfig(),
+                                                kind=kind)
+            key, args = ("point", kind), ()
+        else:
+            step = engine.make_serve_step(engine.EngineConfig(
+                max_visited=16, score_union=union), kind=kind)
+            key = ("serve", kind, union, delta)
+            args = (_g(xy, cuda),) if delta else ()
+        want = step(g[kind], _g(q, cuda), *args)
+        for r, out in enumerate(ranks):
+            for f in want._fields:
+                np.testing.assert_array_equal(
+                    getattr(out[key], f)[keep],
+                    getattr(want, f).cpu().numpy()[keep],
+                    err_msg=f"rank {r} {key} {f}")
+    for r, out in enumerate(ranks):
+        for kind in fits:
+            first, rep = out[("two_tier", kind)]
+            assert first.stats.r_truncated.any()
+            assert not rep.stats.r_truncated.any()
+            np.testing.assert_array_equal(rep.stats.n_results, wl.n_results)
+        for name in ("traverse_compact", "leaf_refine", "forest_infer",
+                     "mlp_predict_compact", "delta_probe", "spatial_key"):
+            assert out["launches"][name] > 0, (r, name)
+        assert out["launches"]["traverse_fused"] == 0, r

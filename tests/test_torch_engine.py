@@ -420,11 +420,14 @@ def test_engine_fresh_server_matches_reference(fresh_world):
 
 def test_model_axis_one_rank_only():
     """The model axis's collectives are identities at one rank, and a
-    larger world raises."""
+    larger world with no initialised process group raises a
+    ``RuntimeError`` rather than serve one rank (the axis over a group
+    is held in ``tests/test_torch_engine_mesh.py``)."""
     ax = engine.model_axis(1)
     x = torch.arange(6).reshape(2, 3)
     assert (ax.index, ax.size) == (0, 1)
     for out in (ax.psum(x), ax.pmax(x), ax.all_gather(x, 1)):
         assert torch.equal(out, x)
-    with pytest.raises(NotImplementedError, match="A11"):
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
         engine.model_axis(2)
