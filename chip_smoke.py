@@ -169,6 +169,24 @@ Phases, each failing the run (non-zero exit) on its own error:
    (``embed``, each stack's ``attn/wo``, the MoE router, the
    cross-attention), no kernel of the thirteen launched; step ms,
    tokens/s, peak memory, a CUPTI profile of one more step;
+13c. rwkv6-3b training over a mesh (``train_mesh_phase``): two ranks of
+   this script (``--train-mesh-rank``) sharing ``cuda:0`` over ``gloo``,
+   at the published width cut to ``TRAIN_MESH_LAYERS`` layer (printed
+   with the reckoned memory and the reason: the phase's time), 3 steps
+   of ``launch/train.py``'s defaults on a 1x2 and then a 2x1 mesh
+   (``launch/sharding.py``'s rules: params, m and v sharded at rest, the
+   params gathered and the gradients summed over ``data`` each step),
+   then the one-rank steps from the same seed, plain and at ``--accum
+   2`` (the 2x1 mesh's float order); gates: each mesh's loss and grad
+   norm within 1e-4 relative of the plain step's, its params, m and v
+   within 4e-3 / 1e-3 / 2e-3 of each leaf's largest value (the plain
+   float32 step's own distance from float64,
+   ``launch/float_witness.py``), each mesh bit-equal to the one-rank
+   steps in its float order, both ranks' gathered params bit-equal, 2 x
+   depth ``wkv6`` launches a step on every rank, a checkpoint written at
+   2x1 restored at 1x2 and on one rank giving the 2x1 mesh's next loss;
+   ms a step and tokens/s, collectives a step and ms each (host clock,
+   one more step), peak memory a rank and a profiled step's idle share;
 14. the seven configs served with plain GQA attention (``lm_phase``),
    each from ``init_params`` in bf16 (``torch.Generator`` seed 0, on the
    card) at its published width: whisper-small at its published depth;
@@ -1776,7 +1794,7 @@ def engine_mesh_rank(workdir: Path) -> int:
     w = meshlib.init_from_env("cuda", timeout_s=120)
     try:
         mesh = meshlib.make_debug_mesh(*MESH_SHAPE, device=w.device)
-        job = torch.load(workdir / "index.pt", weights_only=False)
+        job = torch.load(workdir / "job.pt", weights_only=False)
         hyb = meshlib.to_device(job["hybrid"], w.device)
         argv = job["argv"] + ["--sort", "hilbert", "--reps", str(MESH_REPS),
                               "--distributed"]
@@ -1891,29 +1909,26 @@ def engine_mesh_rank(workdir: Path) -> int:
 
 
 class MeshRun:
-    """Phase 7c's ranks, started: the index saved once (``torch.save``)
-    into a temporary directory, then ``MESH_SHAPE``'s ranks of this
-    script (``--engine-mesh-rank``) with the environment
+    """Ranks of this script started on ``job`` (a dict saved once
+    with ``torch.save`` into a temporary directory): ``n`` processes of
+    ``chip_smoke.py <flag> <dir>`` (phase 7c: ``--engine-mesh-rank``;
+    phase 13c: ``--train-mesh-rank``) with the environment
     ``torch.distributed.run`` gives its workers (a free port on
-    127.0.0.1), each in a session of its own. ``join`` waits for them:
-    a rank that fails or outlives ``MESH_TIMEOUT_S`` stops them all."""
+    127.0.0.1), each in a session of its own. ``join`` waits for them: a
+    rank that fails or outlives ``timeout_s`` stops them all."""
 
-    def __init__(self, idx, base_argv, inserts):
+    def __init__(self, job: dict, flag: str, n: int = 2,
+                 timeout_s: float = MESH_TIMEOUT_S):
         import socket
         import tempfile
         import torch
-        from repro_torch.launch import mesh as meshlib
         self.tmp = tempfile.TemporaryDirectory()
         tmp = Path(self.tmp.name)
-        torch.save(dict(argv=base_argv, points=idx.points,
-                        hybrid=meshlib.to_device(idx.hybrid, "cpu"),
-                        fit_state=idx.report.fit_state,
-                        queries=idx.workload.queries, inserts=inserts),
-                   tmp / "index.pt")
+        torch.save(job, tmp / "job.pt")
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
-        n = MESH_SHAPE[0] * MESH_SHAPE[1]
+        self.timeout_s = timeout_s
         self.logs = [tmp / f"rank{r}.log" for r in range(n)]
         self.procs = []
         self.t0 = time.time()
@@ -1923,10 +1938,21 @@ class MeshRun:
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
             with open(self.logs[r], "w") as log:
                 self.procs.append(subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"),
-                     "--engine-mesh-rank", str(tmp)], env=env, cwd=ROOT,
+                    [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                     str(tmp)], env=env, cwd=ROOT,
                     stdout=log, stderr=subprocess.STDOUT,
                     start_new_session=True))
+
+    @classmethod
+    def engine(cls, idx, base_argv, inserts) -> "MeshRun":
+        """Phase 7c's ranks on the index ``idx`` (moved to the host)."""
+        from repro_torch.launch import mesh as meshlib
+        n = MESH_SHAPE[0] * MESH_SHAPE[1]
+        return cls(dict(argv=base_argv, points=idx.points,
+                        hybrid=meshlib.to_device(idx.hybrid, "cpu"),
+                        fit_state=idx.report.fit_state,
+                        queries=idx.workload.queries, inserts=inserts),
+                   "--engine-mesh-rank", n)
 
     def join(self):
         """``(failure or None, [(exit code, log text)], seconds, [each
@@ -1936,8 +1962,8 @@ class MeshRun:
         try:
             while failed is None and any(p.poll() is None
                                          for p in self.procs):
-                if time.time() - self.t0 > MESH_TIMEOUT_S:
-                    failed = f"ranks still running after {MESH_TIMEOUT_S} s"
+                if time.time() - self.t0 > self.timeout_s:
+                    failed = f"ranks still running after {self.timeout_s} s"
                 elif any(p.returncode for p in self.procs
                          if p.poll() is not None):
                     failed = "a rank failed"
@@ -2045,7 +2071,7 @@ def engines_alone(idx, args, base_argv, inserts, dev, card) -> int:
     _, _, mixed = mixed_stream(idx, base_argv, inserts, dev)
     _, erates, one_rank = engine_phase(idx, base_argv, inserts, dev, report,
                                        mixed)
-    _, mesh_rates = engine_mesh_phase(MeshRun(idx, base_argv, inserts),
+    _, mesh_rates = engine_mesh_phase(MeshRun.engine(idx, base_argv, inserts),
                                       card, one_rank)
     print(f"# engine on {card}: one rank: " + ", ".join(
         f"{k} {v}" for k, v in erates.items()) + f"; 1x2 mesh: {mesh_rates}")
@@ -3095,6 +3121,376 @@ def lm_train_phase(dev, card):
     return counts, summary
 
 
+# rwkv6-3b training over a mesh (phase 13c): launch/train.py's defaults at
+# the published width, two ranks sharing the card over gloo, first as 1x2
+# and then as 2x1, against the one-rank step
+TRAIN_MESH_SHAPES = ((1, 2), (2, 1))
+TRAIN_MESH_LAYERS = 1            # the depth cut (train_mesh_phase prints why)
+TRAIN_MESH_BYTES = 60e9          # both ranks' state and steps together
+TRAIN_MESH_TIMEOUT_S = 300       # the ranks' join
+TRAIN_BATCH_TOKENS = 8 * 128     # TRAIN_ARGV's global batch x seq
+# params, m and v against the plain one-rank step: the largest |diff| over
+# the leaf's largest |value|, within the plain float32 step's own distance
+# from the same step in float64 at this depth, seed and batch, rounded up
+# (3.813e-3 / 7.956e-4 / 1.590e-3 on an H100: launch/float_witness.py)
+TRAIN_MESH_TOL = {"params": 4e-3, "m": 1e-3, "v": 2e-3}
+
+
+class CollectiveClock:
+    """While entered, counts and times (host clock, the device
+    synchronised before and after) every collective of a ``ModelAxis``
+    past one rank: the mesh's gathers and sums. The synchronisations
+    slow the step, so the step times are taken outside it."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import engine
+        self.n, self.s, self.bytes = 0, 0.0, 0
+        self.saved = {name: getattr(engine.ModelAxis, name)
+                      for name in ("_all_reduce", "all_gather")}
+        for name, inner in self.saved.items():
+
+            def timed(axis, x, *a, _inner=inner):
+                if axis.size == 1:
+                    return _inner(axis, x, *a)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _inner(axis, x, *a)
+                torch.cuda.synchronize()
+                self.n += 1
+                self.s += time.perf_counter() - t0
+                self.bytes += x.numel() * x.element_size()
+                return out
+            setattr(engine.ModelAxis, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        for name, inner in self.saved.items():
+            setattr(engine.ModelAxis, name, inner)
+
+
+def train_mesh_bytes(cfg) -> tuple[int, int]:
+    """``(both ranks' mesh steps, both ranks' one-rank steps)`` in bytes,
+    reckoned from the meta-device state (``specs.state_specs``) in
+    float32: a mesh rank holds the whole params and grads in a step and
+    its half of params, m and v (12 bytes a parameter over two ranks);
+    a one-rank step holds params, grads, m and v whole."""
+    import torch
+    from repro_torch.launch import specs
+    from repro_torch.training import tree
+    state, _ = specs.state_specs(cfg, dtype=torch.float32)
+    n = sum(t.numel() for _, t in tree.leaves(state.params))
+    return 2 * (8 * n + 6 * n), 2 * 16 * n
+
+
+def errs_text(e: dict) -> str:
+    return "; ".join(f"{n} {v[0]:.3e} of a leaf's max ({v[1]})"
+                     for n, v in e.items())
+
+
+def train_mesh_rank(workdir: Path) -> int:
+    """One rank of phase 13c, started by ``train_mesh_phase`` with the
+    environment ``torch.distributed.run`` gives its workers: join the
+    world (``cuda:0``, ``gloo``), then on each of ``TRAIN_MESH_SHAPES``
+    train rwkv6-3b at the job's depth for ``TRAIN_STEPS`` steps of
+    ``launch/train.py``'s defaults from seed 0 (every rank draws the
+    global batch, ``train_loop``'s mesh step keeps its rows), each step
+    timed with the launch counts reset just before and read just after;
+    keep its shards on the host, digest its gathered params, save a
+    checkpoint at 2x1, profile one more step (CUPTI), and count and time
+    the collectives of one more (``CollectiveClock``). Then restore the
+    2x1 checkpoint at 1x2 and take the next step; then, outside any
+    mesh, the one-rank steps from the same seed in each mesh's float
+    order (``--accum`` the mesh's data ranks: microbatches whose
+    gradients are summed as the data ranks' are; at 1 the plain step),
+    each mesh's shards held against them and against the plain step,
+    and the checkpoint restored on one rank with its next step. Saves
+    the results under ``workdir``."""
+    import hashlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import float_witness, mesh as meshlib
+    from repro_torch.launch import sharding, train
+    from repro_torch.training import checkpoint, train_loop, tree
+    w = meshlib.init_from_env("cuda", timeout_s=120)
+    try:
+        job = torch.load(workdir / "job.pt", weights_only=False)
+        dev = w.device
+        cfg = dataclasses.replace(configs.get_config("rwkv6_3b"),
+                                  n_layers=job["layers"])
+        args = train.parse_args(list(TRAIN_ARGV) +
+                                ["--steps", str(TRAIN_STEPS)])
+        ocfg = train.adamw_config(args)
+        meshes = {s: meshlib.make_debug_mesh(*s, device=dev)
+                  for s in TRAIN_MESH_SHAPES}
+        specs = {s: sharding.state_shardings(cfg, m)
+                 for s, m in meshes.items()}
+        batches = [train.synthetic_batch(cfg, args.batch, args.seq, s,
+                                         device=dev)
+                   for s in range(TRAIN_STEPS + 2)]
+        ckpt = str(workdir / "ckpt")
+        out = dict(rank=w.rank, device=str(dev), backend=w.backend,
+                   meshes={})
+        shards = {}
+
+        def fresh(shape=None):
+            return train_loop.init_train_state(
+                cfg, torch.Generator(dev).manual_seed(0),
+                dtype=torch.float32, opt_cfg=ocfg, device=dev,
+                mesh=meshes.get(shape), specs=specs.get(shape))
+
+        def steps(state, step):
+            rows = []
+            for b in batches[:TRAIN_STEPS]:
+                state, m = step(state, b)
+                rows.append(dict(loss=float(m["loss"]),
+                                 gnorm=float(m["grad_norm"])))
+            return state, rows
+
+        for shape in TRAIN_MESH_SHAPES:
+            mesh = meshes[shape]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = fresh(shape)
+            step = train_loop.make_train_step(cfg, opt_cfg=ocfg, mesh=mesh,
+                                              specs=specs[shape])
+            rows = []
+            for s in range(TRAIN_STEPS):
+                kcuda.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batches[s])
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                rows.append(dict(
+                    loss=loss, gnorm=float(m["grad_norm"]),
+                    s=time.perf_counter() - t0,
+                    launches=kcuda.launch_counts()))
+                print(f"# rank {w.rank}: {shape[0]}x{shape[1]} step {s}: "
+                      f"loss {loss:.6f} {rows[-1]['s'] * 1e3:.1f} ms",
+                      flush=True)
+            peak = torch.cuda.max_memory_allocated()
+            shards[shape] = {k: x.to("cpu", copy=True)
+                             for k, x in tree.leaves(state)}
+            digest = hashlib.sha1()
+            whole = sharding.gather_tree(state.params, specs[shape].params,
+                                         mesh)
+            for _, x in tree.leaves(whole):
+                digest.update(x.cpu().numpy().tobytes())
+            del whole
+            if shape == (2, 1):
+                checkpoint.save(ckpt, TRAIN_STEPS - 1, state, mesh=mesh,
+                                specs=specs[shape])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, m = step(state, batches[TRAIN_STEPS])
+                next_loss = float(m["loss"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy = sum(e.time_range.elapsed_us()
+                       for e in cuda_events(prof)) / 1e3
+            with CollectiveClock() as clock:
+                state, m = step(state, batches[TRAIN_STEPS + 1])
+                float(m["loss"])
+            out["meshes"][shape] = dict(
+                rows=rows, peak=peak, digest=digest.hexdigest(),
+                next_loss=next_loss, profiled_ms=wall * 1e3, busy_ms=busy,
+                collectives=clock.n, collective_s=clock.s,
+                collective_bytes=clock.bytes)
+            del state, m, step, prof
+        torch.cuda.empty_cache()
+
+        # the 2x1 checkpoint at 1x2, and its next step
+        state, _ = checkpoint.restore(ckpt, fresh((1, 2)), mesh=meshes[
+            (1, 2)], specs=specs[(1, 2)])
+        state, m = train_loop.make_train_step(
+            cfg, opt_cfg=ocfg, mesh=meshes[(1, 2)], specs=specs[(1, 2)])(
+            state, batches[TRAIN_STEPS])
+        out["restored_1x2"] = float(m["loss"])
+        del state, m
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+
+        # one rank, outside the mesh: the steps in each mesh's float order
+        # (--accum n_data) and the plain step, each mesh's shards held
+        # against both; the checkpoint restored on one rank
+        out["errs"], out["same"], out["one_rank"] = {}, {}, {}
+        for nd in sorted({shape[0] for shape in TRAIN_MESH_SHAPES},
+                         reverse=True):
+            state, out["one_rank"][nd] = steps(
+                fresh(), train_loop.make_train_step(
+                    cfg, opt_cfg=ocfg, accum_steps=nd))
+            for shape, mesh in meshes.items():
+                spec = dict(tree.leaves(specs[shape]))
+
+                def cut(key, x):
+                    return sharding.shard_leaf(x, spec[key], mesh)
+                if shape[0] == nd:
+                    out["same"][shape] = all(
+                        torch.equal(shards[shape][key].to(dev), cut(key, x))
+                        for key, x in tree.leaves(state)) and all(
+                        (r["loss"], r["gnorm"]) == (g["loss"], g["gnorm"])
+                        for r, g in zip(out["one_rank"][nd],
+                                        out["meshes"][shape]["rows"]))
+                if nd == 1:
+                    out["errs"][shape] = float_witness.leaf_errs(
+                        shards[shape], dict(tree.leaves(state)), cut)
+            del state
+        step = train_loop.make_train_step(cfg, opt_cfg=ocfg)
+        state, _ = checkpoint.restore(ckpt, fresh())
+        state, m = step(state, batches[TRAIN_STEPS])
+        out["restored_one"] = float(m["loss"])
+        torch.save(out, workdir / f"rank{w.rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def train_mesh_phase(dev, card):
+    """Phase 13c: rwkv6-3b training over a mesh. Two ranks of this
+    script (``train_mesh_rank``) share ``cuda:0`` over ``gloo`` and train
+    at the published width cut to ``TRAIN_MESH_LAYERS`` layer (within
+    ``TRAIN_MESH_BYTES`` for both ranks and within the phase's time),
+    on a 1x2 and then a 2x1 mesh.
+    Gates: both ranks exit 0; each mesh's loss and grad norm every step
+    within ``TRAIN_TOL`` relative of the plain one-rank step's, and its
+    params, m and v within ``TRAIN_MESH_TOL`` of each leaf's largest
+    value (the plain float32 step's own distance from float64); each
+    mesh's state and metrics equal bit for bit to the one-rank steps in
+    its float order (``--accum`` its data ranks: 1x2 the plain step,
+    2x1 two microbatches, through the accumulation path, which shares
+    nothing with the mesh's data split); both ranks' gathered params
+    equal bit for bit; 2 x depth ``wkv6``
+    launches a step on every rank; the 2x1 checkpoint restored at 1x2
+    and on one rank gives the 2x1 mesh's next loss. Returns ``(launch
+    counts by path, summed over the ranks; the summary; the wkv6 row's
+    fields)``."""
+    import torch
+    from repro_torch import configs
+    t_all = time.time()
+    L = TRAIN_MESH_LAYERS
+    full = configs.get_config("rwkv6_3b")
+    cfg = dataclasses.replace(full, n_layers=L)
+    mesh_b, one_b = train_mesh_bytes(cfg)
+    fits = max(n for n in range(1, full.n_layers + 1) if max(
+        train_mesh_bytes(dataclasses.replace(full, n_layers=n)))
+        <= TRAIN_MESH_BYTES)
+    print(f"# rwkv6-3b training over a mesh on {card}: CUT to {L} of "
+          f"{full.n_layers} layers (published width: d_model "
+          f"{full.d_model}, {full.n_heads} heads, vocab {full.vocab}); "
+          f"reckoned for two ranks on the one card: mesh steps "
+          f"{mesh_b / 1e9:.2f} GB, one-rank steps {one_b / 1e9:.2f} GB "
+          f"beside activations (limit {TRAIN_MESH_BYTES / 1e9:.0f} GB: "
+          f"{fits} layers would fit). The cut is the phase's time: every "
+          "step gathers the params and sums the gradients through the "
+          "host, and 1 layer takes most of the phase's 150 s; past it the "
+          "float32 gradient itself drifts from float64 by percents "
+          "(launch/float_witness.py; PERF.md, PR 33)")
+    check(max(mesh_b, one_b) <= TRAIN_MESH_BYTES,
+          f"train mesh: {max(mesh_b, one_b)} bytes reckoned")
+    torch.cuda.empty_cache()
+    run = MeshRun({"layers": L}, "--train-mesh-rank", 2,
+                  TRAIN_MESH_TIMEOUT_S)
+    failed, logs, wall, outs = run.join()
+    for r, (rc, text) in enumerate(logs):
+        print("\n".join(ln for ln in text.splitlines()
+                        if ln.startswith("#")))
+        if failed:
+            print(f"# rank {r} exited {rc}; its log's end:\n{text[-4000:]}")
+    check(failed is None, f"train mesh: {failed}")
+    counts, texts = {}, []
+    for shape in TRAIN_MESH_SHAPES:
+        label = f"{shape[0]}x{shape[1]}"
+        path = f"train mesh {label}"
+        per_rank = []
+        for o in outs:
+            r, got = o["rank"], o["meshes"][shape]
+            check(o["backend"] == "gloo" and o["device"] == "cuda:0",
+                  f"train mesh rank {r} on {o['device']} over "
+                  f"{o['backend']}")
+            order = "the plain step" if shape[0] == 1 else \
+                f"the --accum {shape[0]} step"
+            check(o["same"][shape], f"train mesh {label} rank {r}: the "
+                  f"state or metrics differ from {order}'s bits")
+            for s, (row, ref) in enumerate(zip(got["rows"],
+                                               o["one_rank"][1])):
+                rel = max(abs(row[k] - ref[k]) / abs(ref[k])
+                          for k in ("loss", "gnorm"))
+                check(rel <= TRAIN_TOL, f"train mesh {label} rank {r} step "
+                      f"{s}: loss/gnorm rel {rel} against one rank")
+                check(row["launches"]["wkv6"] == 2 * L,
+                      f"train mesh {label} rank {r} step {s}: "
+                      f"{row['launches']['wkv6']} wkv6 launches, not "
+                      f"2 x {L}")
+                counts[path] = {k: counts.get(path, {}).get(k, 0) + v
+                                for k, v in row["launches"].items()}
+            errs = o["errs"][shape]
+            for n, e in errs.items():
+                check(e[0] <= TRAIN_MESH_TOL[n], f"train mesh {label} rank "
+                      f"{r}: {n} {e[0]:.3e} of {e[1]}'s max against the "
+                      f"plain step (bound {TRAIN_MESH_TOL[n]})")
+            rel = max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(
+                got["rows"], o["one_rank"][1]) for k in ("loss", "gnorm"))
+            print(f"# train mesh {label} rank {r}: params, m, v, loss and "
+                  f"grad norm equal bit for bit to {order} on one rank; "
+                  f"against the plain step: loss/gnorm rel {rel:.3e} "
+                  f"(bound {TRAIN_TOL}); " + errs_text(errs) + " (bounds "
+                  + " / ".join(f"{v:g}" for v in TRAIN_MESH_TOL.values())
+                  + ")")
+            steady = got["rows"][1:]
+            ms = 1e3 * statistics.mean(x["s"] for x in steady)
+            coll_ms = 1e3 * got["collective_s"] / max(got["collectives"], 1)
+            idle = 100 - 100 * got["busy_ms"] / got["profiled_ms"]
+            print(f"# train mesh {label} rank {r}: {ms:.1f} ms a step (mean "
+                  f"of steps 1-{TRAIN_STEPS - 1}; "
+                  f"{TRAIN_BATCH_TOKENS / (ms / 1e3):.0f} tokens/s of the "
+                  f"global batch); one more step with its collectives "
+                  f"clocked: {got['collectives']} collectives "
+                  f"({got['collective_bytes'] / 1e9:.3f} GB) at "
+                  f"{coll_ms:.2f} ms each (host clock, the device "
+                  f"synchronised around each; gloo through the host); peak "
+                  f"{got['peak'] / 1e9:.3f} GB "
+                  f"(torch.cuda.max_memory_allocated of the rank); a "
+                  f"profiled step {got['profiled_ms']:.1f} ms with device "
+                  f"busy {got['busy_ms']:.1f} ms (idle {idle:.1f}%); wkv6 "
+                  f"launches a step {got['rows'][0]['launches']['wkv6']}")
+            per_rank.append(f"rank {r} {ms:.1f} ms a step, "
+                            f"{TRAIN_BATCH_TOKENS / (ms / 1e3):.0f} "
+                            f"tokens/s, {got['collectives']} collectives at "
+                            f"{coll_ms:.2f} ms, peak "
+                            f"{got['peak'] / 1e9:.3f} GB, idle {idle:.1f}%")
+        digests = [o["meshes"][shape]["digest"] for o in outs]
+        check(all(d == digests[0] for d in digests),
+              f"train mesh {label}: the ranks' gathered params differ")
+        texts.append(f"{label}: " + "; ".join(per_rank))
+    nexts = {"2x1 mesh": outs[0]["meshes"][(2, 1)]["next_loss"]}
+    for o in outs:
+        nexts[f"restored at 1x2 (rank {o['rank']})"] = o["restored_1x2"]
+        nexts[f"restored on one rank (rank {o['rank']})"] = \
+            o["restored_one"]
+    want = nexts["2x1 mesh"]
+    for what, v in nexts.items():
+        check(abs(v - want) <= TRAIN_TOL * abs(want),
+              f"train mesh checkpoint: next loss {what} {v} against the "
+              f"2x1 mesh's {want}")
+    print("# train mesh checkpoint (written at 2x1 after step "
+          f"{TRAIN_STEPS - 1}): next loss " + ", ".join(
+              f"{k} {v:.6f}" for k, v in nexts.items())
+          + f" (tolerance {TRAIN_TOL} relative); both ranks' gathered "
+          "params equal bit for bit on each mesh")
+    summary = (f"{L} of {full.n_layers} layers, two ranks on one card "
+               f"over gloo (every collective through the host; no "
+               f"multi-GPU rate): " + " | ".join(texts))
+    print(f"# rwkv6-3b training over a mesh on {card}: {summary}")
+    print(f"# train mesh phase: {time.time() - t_all:.1f}s ({wall:.1f} s "
+          "of ranks)")
+    return counts, summary, {"train_mesh_launches_a_step": 2 * L}
+
+
 # the LM serving paths: the seven GQA families (dense x5, hybrid,
 # encdec), then the moe pair
 LM_SLOTS = 32768                         # decode_32k's context
@@ -3604,6 +4000,8 @@ def main(argv=None) -> int:
                         "contract line")
     p.add_argument("--engine-mesh-rank", default=None,
                    help=argparse.SUPPRESS)   # a rank of phase 7c
+    p.add_argument("--train-mesh-rank", default=None,
+                   help=argparse.SUPPRESS)   # a rank of phase 13c
     opts = p.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3618,6 +4016,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if opts.engine_mesh_rank:
         return engine_mesh_rank(Path(opts.engine_mesh_rank))
+    if opts.train_mesh_rank:
+        return train_mesh_rank(Path(opts.train_mesh_rank))
     from repro_torch import resolve_device
     from repro_torch.kernels import cuda as kcuda
     from repro_torch.launch import serve
@@ -3739,7 +4139,7 @@ def main(argv=None) -> int:
 
     # -- the same three streams over a mesh of two ranks sharing the card,
     # served while this process fits the forest bank on the host
-    mesh_run = MeshRun(idx, base_argv, inserts)
+    mesh_run = MeshRun.engine(idx, base_argv, inserts)
     forest = forest_fit(idx, "; the mesh phase's two ranks served meanwhile")
     mcounts, mesh_rates = engine_mesh_phase(
         mesh_run, card, one_rank, "; this process fit the forest bank "
@@ -3787,6 +4187,12 @@ def main(argv=None) -> int:
     # -- the nine other LM families' training at their published width
     tcounts, lm_train = lm_train_phase(dev, card)
     counts.update(tcounts)
+
+    # -- rwkv6-3b training over a 1x2 and a 2x1 mesh of two ranks
+    tcounts, rwkv["training over a mesh"], mesh_fields = train_mesh_phase(
+        dev, card)
+    counts.update(tcounts)
+    wkv6_row.update(mesh_fields)
 
     # -- the LM serving paths (the GQA families, the moe pair): prefill
     # and decode

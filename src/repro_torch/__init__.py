@@ -21,7 +21,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
     ``cuda`` without a card raises: there is no CPU fallback. TF32 stays
     off for both matmuls and cuDNN, so float32 work is float32 on the card
-    as on the host.
+    as on the host. ``meta`` (shapes and dtypes with no storage, as
+    ``launch/specs.py`` builds them) is taken as it is.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -31,6 +32,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                                "the host)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

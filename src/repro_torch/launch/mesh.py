@@ -14,6 +14,8 @@ the ``ServeStats`` are all-gathered over the data group, so every rank
 holds the whole batch's stats. ``Mesh.shard`` pads a hybrid for the
 model axis and keeps this rank's shard (``engine.shard_for_rank``).
 
+Training takes the same mesh (``train_mesh_shape`` reads the training
+driver's ``--mesh``; ``launch/sharding.py`` lays the state out on it).
 There is no ``set_mesh``: the groups are explicit, held by the ``Mesh``
 and passed to whatever runs on them. The reference's
 ``make_production_mesh`` (16×16 and 2×16×16 chips) belongs to its
@@ -163,6 +165,22 @@ def serve_mesh_shape(world: int) -> tuple[int, int]:
     max(1, world // 2)`` and ``n_model = world // n_data``."""
     nd = max(1, world // 2)
     return nd, world // nd
+
+
+def train_mesh_shape(world: int, arg: str = "auto") -> tuple[int, int]:
+    """``repro.launch.train``'s ``--mesh``: ``auto`` is ``(world, 1)``
+    (``jax.make_mesh((n_dev, 1))``: every rank a data index), ``DxM``
+    is ``(D, M)`` and must hold the world's ranks (``ValueError``)."""
+    if arg == "auto":
+        return world, 1
+    try:
+        d, m = (int(x) for x in arg.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {arg!r}: 'auto' or 'DxM'") from None
+    if d < 1 or m < 1 or d * m != world:
+        raise ValueError(f"--mesh {arg}: a {d}x{m} mesh needs {d * m} "
+                         f"ranks; the world has {world}")
+    return d, m
 
 
 @dataclasses.dataclass(frozen=True)

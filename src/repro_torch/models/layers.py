@@ -19,7 +19,10 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
     """Truncated-normal fan-in init (all linear layers): a standard normal
     truncated to [-2, 2], drawn in float32 from ``generator`` on the
     generator's own device, times ``1/sqrt(fan_in)`` unless ``scale`` is
-    given, then moved to ``device`` (where it was drawn when None)."""
+    given, then moved to ``device`` (where it was drawn when None). On
+    the ``meta`` device nothing is drawn: the shape and dtype alone."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.empty(tuple(shape), dtype=torch.float32,

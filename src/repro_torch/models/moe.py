@@ -23,6 +23,16 @@ Three places differ in form from the reference and keep its values:
   unordered ``index_add_``: a bf16 prefill gives the same bits on every
   run. (``torch.sum`` over k would accumulate bf16 in float32 and round
   once, which is not the reference's rounding.)
+
+Over a data axis (``moe_ffn(..., data=)``: a training step whose global
+batch is split into contiguous rows, one block a data rank) the capacity
+and the drop order are the global batch's, as the reference's one
+program over the whole batch gives them: ``C`` comes from the global
+token count, a pair's place in its expert's slots is its rank-local
+place plus the pairs that lower data ranks sent to that expert (one
+all-gather of the ``[E]`` load), and ``MoEStats`` count the whole batch.
+The rank-local stable sort keeps the token-order priority, because the
+ranks' rows are contiguous and in rank order.
 """
 from __future__ import annotations
 
@@ -79,13 +89,18 @@ def capacity(cfg: ModelConfig, T: int,
 
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
             capacity_factor: Optional[float] = None,
-            deterministic_capacity: Optional[int] = None
-            ) -> tuple[torch.Tensor, MoEStats]:
+            deterministic_capacity: Optional[int] = None, *,
+            data=None) -> tuple[torch.Tensor, MoEStats]:
     """x [B, S, d] → ([B, S, d], MoEStats).
 
     Params: ``router`` [d, E] (float32); routed experts ``wi`` / ``wg``
     [E, d, de], ``wo`` [E, de, d]; shared experts ``sh_wi`` / ``sh_wg``
     [d, n_sh·de], ``sh_wo`` [n_sh·de, d].
+
+    ``data``: the data axis ``x``'s rows are one block of (an
+    ``engine.ModelAxis``: ``index``, ``size``, ``all_gather``; None or
+    one rank: the batch is whole). Every rank of the axis must run the
+    same MoE layers in the same order.
     """
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -94,8 +109,10 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     xt = x.reshape(T, d)
     act = act_fn(cfg.act)
 
+    data = data if data is not None and data.size > 1 else None
+    T_all = T * (data.size if data is not None else 1)     # equal blocks
     ids, gates = route_topk(router_scores(p, xt), k)       # [T, k]
-    C = capacity(cfg, T, capacity_factor, deterministic_capacity)
+    C = capacity(cfg, T_all, capacity_factor, deterministic_capacity)
     # ---- sort (token, slot) pairs by expert id
     flat_e = ids.reshape(-1).long()                        # [T·k]
     order = torch.argsort(flat_e, stable=True)
@@ -105,8 +122,13 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # position in it (no host sync: ``bincount`` would wait for a max)
     bounds = torch.searchsorted(se, torch.arange(E + 1, device=dev))
     pos = torch.arange(T * k, device=dev) - bounds[se]
-    keep = pos < C
     load = torch.diff(bounds).to(torch.int32)
+    if data is not None:
+        # the global batch's order: lower data ranks' pairs come first
+        loads = data.all_gather(load[None], 0)             # [n_data, E]
+        pos = pos + loads[:data.index].sum(0)[se]
+        load = loads.sum(0, dtype=torch.int32)
+    keep = pos < C
 
     # ---- dispatch into [E, C, d]: kept rows into their own slots, the
     # dropped ones into the spare row E·C
@@ -139,8 +161,10 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
         out = out + shared_experts(cfg, p, xt)
 
     # the mean as the reference's lowering computes it: the sum times a
-    # float32 reciprocal of the count (a division rounds otherwise)
-    kept_frac = torch.sum(keep.to(torch.float32)) * torch.full(
-        (), T * k, dtype=torch.float32, device=dev).reciprocal()
+    # float32 reciprocal of the count (a division rounds otherwise); an
+    # expert keeps min(load, C) of the (global) batch's pairs
+    kept = torch.sum(torch.clamp(load, max=C).to(torch.float32))
+    kept_frac = kept * torch.full(
+        (), T_all * k, dtype=torch.float32, device=dev).reciprocal()
     stats = MoEStats(dropped_frac=1.0 - kept_frac, load=load)
     return out.reshape(B, S, d), stats

@@ -325,10 +325,11 @@ def hybrid_mix(cfg: ModelConfig, p: Params, a: torch.Tensor,
 
 
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
-                 *, window: int, use_moe: bool = False) -> torch.Tensor:
-    """Attention, then the FFN (the MoE block when ``use_moe``, whose
-    ``MoEStats`` are dropped as the reference drops them), each with
-    its residual."""
+                 *, window: int, use_moe: bool = False,
+                 data=None) -> torch.Tensor:
+    """Attention, then the FFN (the MoE block when ``use_moe``, routed
+    over the data axis ``data``, whose ``MoEStats`` are dropped as the
+    reference drops them), each with its residual."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     a = _attn_block(cfg, p["attn"], h, positions, causal=True, window=window)
     if cfg.family == "hybrid":
@@ -341,7 +342,7 @@ def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions,
     x = x + a
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
     if use_moe:
-        f, _ = moelib.moe_ffn(cfg, p["moe"], h)
+        f, _ = moelib.moe_ffn(cfg, p["moe"], h, data=data)
     else:
         f = _mlp(cfg, p["mlp"], h)
     if "norm_post2" in p:
@@ -478,7 +479,8 @@ def _run_layers(params: Params, stack: str, block: Callable,
 
 def forward(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor], *,
-            remat_policy: Optional[str] = "dots") -> torch.Tensor:
+            remat_policy: Optional[str] = "dots",
+            data=None) -> torch.Tensor:
     """Training/prefill forward → logits [B, S, vocab_padded].
 
     ``batch``: {"tokens": [B,S]} or {"embeds": [B,S,d]} (qwen2-vl's
@@ -489,7 +491,9 @@ def forward(cfg: ModelConfig, params: Params,
     ``kernels/csrc`` (their attention and Mamba scan are plain PyTorch,
     as the reference's are plain JAX). Under autograd each layer is
     checkpointed by ``remat_policy`` (``_remat``), which does not change
-    the values; under ``torch.no_grad()`` it costs nothing.
+    the values; under ``torch.no_grad()`` it costs nothing. ``data``:
+    the data axis ``batch``'s rows are one block of (the MoE layers'
+    capacity and drop order are then the global batch's).
     """
     if "embeds" in batch:
         x = batch["embeds"].to(params["embed"].dtype)
@@ -519,7 +523,7 @@ def forward(cfg: ModelConfig, params: Params,
 
         def block(p, h):
             return _dense_block(cfg, p, h, positions, window=window,
-                                use_moe=use_moe)
+                                use_moe=use_moe, data=data)
     x = _run_layers(params, "layers", block, x, remat_policy)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -529,16 +533,26 @@ def forward(cfg: ModelConfig, params: Params,
 
 def loss_fn(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor], *,
-            remat_policy: Optional[str] = "dots") -> torch.Tensor:
+            remat_policy: Optional[str] = "dots",
+            data=None) -> torch.Tensor:
     """Next-token cross entropy over the logical vocab, in float32, as a
     mean over the positions ``batch["loss_mask"]`` weights (all of them
-    when it is absent)."""
-    logits = forward(cfg, params, batch, remat_policy=remat_policy)
+    when it is absent).
+
+    ``data`` (a data axis of more than one rank, ``engine.ModelAxis``:
+    ``batch`` is this rank's block of the global batch's rows) divides
+    this rank's sum by the global batch's mask count (summed over the
+    axis, then clamped at 1), so the ranks' losses and gradients add up
+    to the global mean's, and routes the MoE layers over it."""
+    logits = forward(cfg, params, batch, remat_policy=remat_policy,
+                     data=data)
     labels = batch["labels"].long()
     logits = logits[..., :cfg.vocab].to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     mask = batch.get("loss_mask")
     mask = torch.ones_like(lse) if mask is None else mask.to(torch.float32)
-    return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                        min=1.0)
+    count = torch.sum(mask)
+    if data is not None:
+        count = data.psum(count)
+    return torch.sum((lse - gold) * mask) / torch.clamp(count, min=1.0)

@@ -41,6 +41,14 @@ class PreemptionHandler:
     def request(self) -> None:   # for tests / manual drain
         self._requested = True
 
+    def agreed(self, mesh) -> bool:
+        """Whether any rank of ``mesh`` was asked to stop (``Mesh.
+        agree_max``, one collective every rank calls at the same point
+        of a step): the ranks checkpoint and stop together, since a rank
+        that checkpointed alone would pair its gathers with the others'
+        next step."""
+        return mesh.agree_max(float(self._requested)) > 0
+
 
 @dataclasses.dataclass
 class HostHealth:
@@ -52,7 +60,8 @@ class HostHealth:
 class StragglerMonitor:
     """Per-host step-time EWMA; a host is a straggler when its EWMA exceeds
     ``threshold`` × the fleet median. At 1000+ nodes this is the signal for
-    hot-spare swap-in / slow-host eviction; in-process it throttles the
+    hot-spare swap-in / slow-host eviction (the training driver beats
+    ``host{rank}`` on every rank of a mesh); in-process it throttles the
     reporting hook so the job can choose to checkpoint + downscale.
     """
 

@@ -106,7 +106,8 @@ def _upd(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2):
 
 
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
-                  state: OptState) -> tuple[Any, OptState, dict]:
+                  state: OptState, gnorm: torch.Tensor | None = None
+                  ) -> tuple[Any, OptState, dict]:
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``.
 
     In place: the new params, m and v are written into the given
@@ -114,8 +115,14 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
     them), slice by slice, which come back in the same trees
     (``state.step`` is replaced), and each leaf of ``grads`` (a dict
     tree) is dropped once it is used, so a step holds params, m, v and
-    grads once."""
-    gnorm = global_norm(grads)
+    grads once.
+
+    ``gnorm`` (default ``global_norm(grads)``) is the norm to clip by:
+    a rank that holds shards of params, grads, m and v passes the whole
+    tree's, and its shard's update is then the same bits as that slice
+    of the whole update (every expression is elementwise)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
         if cfg.clip_norm else 1.0
     step = state.step + 1

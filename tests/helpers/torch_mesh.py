@@ -34,6 +34,27 @@ The cases (each optional in ``job``):
 The hybrids go to ``job["device"]`` (``cpu`` by default, ``cuda`` for the
 card's test: both ranks on ``cuda:0``); ``"launches"`` holds the kernel
 launches of the serve, point and two-tier cases.
+
+A training job has no ``mesh`` of its own: ``job["train"]`` is a list of
+``(kind, case)`` run in order, each case on the mesh ``case["mesh"]``
+(built once a shape), and ``out["train"]`` the list of their results:
+
+* ``step``: ``case["state"]`` (a whole ``TrainState``, e.g. bridged from
+  the reference) sharded by ``sharding.state_shardings``, optionally
+  restored from ``case["restore"]`` over the mesh, then one
+  ``make_train_step(..., mesh=)`` step a batch of ``case["batches"]``
+  (``accum``, ``opt`` kwargs of ``AdamWConfig``, ``cfg`` fields replaced
+  in ``reduced(arch)``); optionally saved over the mesh to
+  ``case["save"]``. Results: each step's metrics (Python floats), the
+  whole state gathered on this rank, the step's kernel launches;
+* ``moe``: ``moe_ffn(cfg, case["p"], rows)`` of this data index's rows
+  of ``case["x"]`` with ``data=mesh.data``: its output gathered over
+  ``data`` and its ``MoEStats``;
+* ``roundtrip``: ``shard_leaf`` then ``gather_leaf`` of ``case["x"]`` under
+  each spec of ``case["specs"]``: ``(block shape, equal to x)`` each;
+* ``preempt``: ``launch.train.train(argv)`` over the mesh, rank
+  ``case["request_on"]``'s preemption handler asked to stop before the
+  first step: the text the rank printed.
 """
 from __future__ import annotations
 
@@ -139,6 +160,93 @@ def _cases(job: dict, mesh) -> dict:
     return out
 
 
+def _train_cases(job: dict) -> list:
+    import contextlib
+    import dataclasses
+    import io
+    from repro_torch import configs
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.launch import mesh as meshlib, sharding
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe as moelib
+    from repro_torch.training import checkpoint, fault_tolerance, tree
+    from repro_torch.training import optimizer as opt, train_loop
+    dev = job.get("device", "cpu")
+    meshes, out = {}, []
+
+    def config(case):
+        cfg = configs.reduced(configs.get_config(case["arch"]))
+        return dataclasses.replace(cfg, **case.get("cfg", {}))
+
+    for kind, case in job["train"]:
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = meshlib.make_debug_mesh(*shape, device=dev)
+        mesh = meshes[shape]
+        if kind == "step":
+            cfg = config(case)
+            specs = sharding.state_shardings(cfg, mesh)
+            state = sharding.shard_tree(
+                meshlib.to_device(case["state"], dev), specs, mesh)
+            if case.get("restore"):
+                state, _ = checkpoint.restore(case["restore"], state,
+                                              mesh=mesh, specs=specs)
+            step = train_loop.make_train_step(
+                cfg, opt_cfg=opt.AdamWConfig(**case["opt"]),
+                accum_steps=case.get("accum", 1), mesh=mesh, specs=specs)
+            metrics = []
+            kcuda.reset_launch_counts()
+            for b in case["batches"]:
+                state, m = step(state, meshlib.to_device(b, dev))
+                metrics.append({k: float(v) for k, v in m.items()})
+            launches = kcuda.launch_counts()
+            if case.get("save"):
+                checkpoint.save(case["save"], len(case["batches"]) - 1,
+                                state, mesh=mesh, specs=specs)
+            whole = sharding.gather_tree(state, specs, mesh)
+            out.append(dict(metrics=metrics, launches=launches,
+                            state=tree.rebuild(whole,
+                                               lambda _, x: x.cpu())))
+        elif kind == "moe":
+            cfg = config(case)
+            x = case["x"].to(dev)
+            n, i = mesh.data.size, mesh.data.index
+            b = x.shape[0] // n
+            y, stats = moelib.moe_ffn(
+                cfg, meshlib.to_device(case["p"], dev),
+                x[i * b:(i + 1) * b], data=mesh.data, **case.get("kw", {}))
+            out.append(dict(y=mesh.data.all_gather(y, 0).cpu(),
+                            dropped_frac=stats.dropped_frac.cpu(),
+                            load=stats.load.cpu()))
+        elif kind == "roundtrip":
+            x = case["x"].to(dev)
+            res = []
+            for spec in case["specs"]:
+                blk = sharding.shard_leaf(x, spec, mesh).contiguous()
+                res.append((tuple(blk.shape), bool(torch.equal(
+                    sharding.gather_leaf(blk, spec, mesh), x))))
+            out.append(res)
+        elif kind == "preempt":
+            install = fault_tolerance.PreemptionHandler.install
+            if mesh.rank == case["request_on"]:
+                def asked(self):
+                    install(self)
+                    self.request()
+                    return self
+                fault_tolerance.PreemptionHandler.install = asked
+            text = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(text):
+                    launch_train.train(launch_train.parse_args(
+                        case["argv"]), mesh)
+            finally:
+                fault_tolerance.PreemptionHandler.install = install
+            out.append(text.getvalue())
+        else:
+            raise ValueError(f"unknown training case {kind!r}")
+    return out
+
+
 def rank_main(job_path: str, rank: int) -> None:
     """One rank: join the group, run the job's cases, save the results."""
     import torch.distributed as dist
@@ -149,9 +257,12 @@ def rank_main(job_path: str, rank: int) -> None:
                             world_size=job["world"],
                             timeout=timedelta(seconds=60))
     try:
-        mesh = meshlib.make_debug_mesh(*job["mesh"],
-                                       device=job.get("device", "cpu"))
-        out = _cases(job, mesh)
+        out = {}
+        if "hybrids" in job:
+            out = _cases(job, meshlib.make_debug_mesh(
+                *job["mesh"], device=job.get("device", "cpu")))
+        if "train" in job:
+            out["train"] = _train_cases(job)
         torch.save(out, Path(job["out"]) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

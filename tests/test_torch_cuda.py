@@ -1377,3 +1377,53 @@ def test_engine_mesh_on_one_card_equals_one_rank(cuda, tmp_path):
                      "mlp_predict_compact", "delta_probe", "spatial_key"):
             assert out["launches"][name] > 0, (r, name)
         assert out["launches"]["traverse_fused"] == 0, r
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)])
+def test_train_mesh_on_one_card_equals_one_rank(cuda, tmp_path, mesh):
+    """Two ranks sharing the card over ``gloo`` train ``reduced(rwkv6_3b)``
+    two steps (``tests/helpers/torch_mesh.py``'s ``step`` case): at 1x2
+    every rank's gathered params, m and v, loss and grad norm equal the
+    one-rank step on the card bit for bit; at 2x1 (the data ranks add
+    their halves' gradients) loss and grad norm within 1e-5 relative and
+    the state within 1e-4 of each leaf's largest value. Every rank
+    launches ``wkv6`` 2 x depth times a step."""
+    from helpers.torch_mesh import spawn
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import optimizer as opt, train_loop, tree
+    cfg = configs.reduced(configs.get_config("rwkv6_3b"))
+    adamw = dict(lr=3e-4, warmup_steps=10, decay_steps=100)
+    s0 = train_loop.init_train_state(
+        cfg, torch.Generator(cuda).manual_seed(0), dtype=torch.float32,
+        opt_cfg=opt.AdamWConfig(**adamw), device=cuda)
+    batches = [launch_train.synthetic_batch(cfg, 8, 16, s) for s in (0, 1)]
+    host = tree.rebuild(s0, lambda _, x: x.cpu())
+    ranks = spawn(dict(device="cuda", train=[("step", dict(
+        mesh=mesh, arch="rwkv6_3b", state=host, batches=batches,
+        opt=adamw))]), 2, tmp_path)
+    step = train_loop.make_train_step(cfg, opt_cfg=opt.AdamWConfig(**adamw))
+    ms = []
+    for b in batches:
+        s0, m = step(s0, {k: v.to(cuda) for k, v in b.items()})
+        ms.append({k: float(v) for k, v in m.items()})
+    want = dict(tree.leaves(s0))
+    for r, out in enumerate(ranks):
+        res = out["train"][0]
+        assert res["launches"]["wkv6"] == 2 * 2 * cfg.n_layers, r
+        got = dict(tree.leaves(res["state"]))
+        for k, w in want.items():
+            w = w.cpu()
+            if mesh == (1, 2):
+                assert torch.equal(got[k], w), (r, k)
+            else:
+                top = float(w.abs().max()) if w.is_floating_point() else 0
+                torch.testing.assert_close(got[k], w, rtol=0,
+                                           atol=1e-4 * top, msg=(r, k))
+        for g, w in zip(res["metrics"], ms):
+            if mesh == (1, 2):
+                assert g == w, r
+            else:
+                for key in ("loss", "grad_norm"):
+                    assert abs(g[key] - w[key]) <= 1e-5 * abs(w[key]), \
+                        (r, key)

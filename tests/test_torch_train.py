@@ -616,7 +616,7 @@ def test_launch_train_synthetic_batch_matches_reference(world):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--mesh", "2x1"], NotImplementedError, "A11"),
+    (["--mesh", "3x1"], ValueError, "3x1 mesh needs 3 ranks; the world has 1"),
 ])
 def test_launch_train_refuses(extra, error, match):
     argv = ["--arch", "rwkv6-3b", "--reduced", "--device", "cpu",
